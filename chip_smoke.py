@@ -5,19 +5,33 @@
 Phases, each of which ends the run with a non-zero exit when it fails:
 
   1. device: the card's name and power limit;
-  2. build: compiles the GroupNorm kernels (e_osvos_torch/csrc) with nvcc;
-  3. kernels: each kernel against its plain PyTorch twin in bf16, at the
-     main path's shapes [3|4|5, 120*214, 256] and at edge shapes (C = 48,
-     M = 1, M not a multiple of the row chunk, N = 1), with times of the
-     kernel, the twin and, where one exists, a single PyTorch call computing
-     the same function;
-  4. main path: e-OSVOS-50-OnA one-shot evaluation (bench.py's
+  2. build: compiles the kernels (e_osvos_torch/csrc/*.cu) with nvcc, one
+     process per source, all at once;
+  3. kernels: each kernel against its plain PyTorch twin on the card. The
+     GroupNorm passes in bf16 at the DeepLab decoder's shapes
+     [3|4|5, 120*214, 256], at the Mask R-CNN backbone's GroupNorm-32 shapes
+     (C = 64 at 102480 rows to C = 2048 at 405 rows) and at edge shapes;
+     greedy NMS (K3) at the detection path's (N = 512, max_out = 1), the
+     greedy RPN's (4336, 512), the kernel's largest N = 16384, a ragged N,
+     an all-invalid input and exact score ties, where idx and keep must be
+     identical. With times of the kernel, the twin and, where one exists,
+     a single PyTorch call computing the same function;
+  4. DeepLab main path: e-OSVOS-50-OnA one-shot evaluation (bench.py's
      configuration) with a full-width resnet50 os16 frozen-BN DeepLabV3+ in
      bf16 at 480x854, seeded random weights: a 16-frame warm-up sequence,
      then one timed 67-frame sequence, with its fps and per-phase times; the
      kernels' launch counts must equal what the configuration implies;
-  5. reference: the same evaluation on a small fp32 model and input, on the
-     card and on the CPU (the kernels' plain twins), must agree.
+  5. DeepLab reference: the same evaluation on a small fp32 model and input,
+     on the card and on the CPU (the kernels' plain twins), must agree;
+  6. detection main path: Mask R-CNN e-OSVOS-50-OnA one-shot tracking
+     (scripts/bench_detection_ona.py's configuration, one detection per
+     frame) with a full-width resnet50 GroupNorm-32 FPN Mask R-CNN in bf16
+     at 480x854, seeded random weights: a 7-frame warm-up sequence, then
+     one timed 67-frame sequence, with its fps, per-phase times and the
+     share of frames with a detection; launch counts as implied;
+  7. detection reference: a tiny fp32 Mask R-CNN through the same entry
+     point on the card and on the CPU, with the same CPU-drawn random
+     numbers: probabilities within 1e-3, identical NMS picks.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -70,9 +84,16 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # ---------------------------------------------------------------- kernels
 
 
-def check_kernels(peaks):
-    """Each kernel against its plain twin; returns the kernels' records
-    (without launch counts, which come from the main path)."""
+# The Mask R-CNN backbone's GroupNorm-32 at 480x854: the stem at the
+# fine-tune's batch 3 (2 channels a group), layer4 at batch 3, layer3 in a
+# window inference (batch 1), layer2 in a refit (batch 4)
+GN_BACKBONE_SHAPES = [(3, 240 * 427, 64, 32), (3, 15 * 27, 2048, 32),
+                      (1, 30 * 54, 1024, 32), (4, 60 * 107, 512, 32)]
+
+
+def check_gn_kernels(peaks):
+    """Each GroupNorm kernel against its plain twin; returns the kernels'
+    records (without launch counts, which come from the main paths)."""
     from e_osvos_torch.ops import cuda_group_norm as K
     from e_osvos_torch.ops.group_norm import (
         GroupNormFunction, fused_group_norm, group_norm,
@@ -86,8 +107,10 @@ def check_kernels(peaks):
         t = torch.randn(*shape, generator=gen) * scale + shift
         return t.to(dev, dtype)
 
-    # (N, M, C, groups): main-path batches, then the edge shapes
+    # (N, M, C, groups): DeepLab batches, the Mask R-CNN backbone, then the
+    # edge shapes
     shapes = [(3, GN_M, GN_C, 16), (4, GN_M, GN_C, 16), (5, GN_M, GN_C, 16),
+              *GN_BACKBONE_SHAPES,
               (3, GN_M, 48, 16), (3, 1, GN_C, 16), (2, 1000, GN_C, 16),
               (1, 777, 48, 16), (1, 30 * 54, GN_C, 16)]
     # Tolerances. Sums are f32 over bf16 inputs, taken in another order than
@@ -157,46 +180,24 @@ def check_kernels(peaks):
     if bad:
         raise AssertionError(f"kernels disagree with their plain twins: {bad}")
 
-    # ---- times at the main path's fine-tune shape [3, 25680, 256] ----
+    # ---- times at the DeepLab fine-tune shape [3, 25680, 256] (the kernels
+    # line) and at the Mask R-CNN stem's [3, 102480, 64] ----
+    records = time_gn_kernels(peaks, 3, GN_M, GN_C)
+    stem = time_gn_kernels(peaks, 3, 240 * 427, 64)
+    log("gn kernels at the Mask R-CNN stem [3, 102480, 64] bf16 " + json.dumps(
+        {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms")}
+         for k, v in stem.items()}))
+    for name in records:
+        records[name]["max_abs_err"] = errs[name]
+
     bw, f32_peak = peaks
     n, m, c, g = 3, GN_M, GN_C, 16
     x = rand(n, m, c, scale=2.0, shift=0.5)
     dy = rand(n, m, c)
     scale = rand(c, dtype=torch.float32, scale=0.5, shift=1.0)
     bias = rand(c, dtype=torch.float32, scale=0.5)
-    a = rand(n, c, dtype=torch.float32)
-    b = rand(n, c, dtype=torch.float32)
-    D = rand(n, c, dtype=torch.float32)
-    elems = n * m * c
-    nbytes = elems * x.element_size()
-    bounds = {  # (bytes moved, f32 operations)
-        "channel_sums": (nbytes + 2 * n * c * 4, 2 * elems),
-        "affine_apply": (2 * nbytes + 2 * n * c * 4, 2 * elems),
-        "pair_sums": (2 * nbytes + 2 * n * c * 4, 2 * elems),
-        "affine_dx": (3 * nbytes + 3 * n * c * 4, 4 * elems),
-    }
-    calls = {
-        "channel_sums": (lambda: K.channel_sums(x), lambda: K.channel_sums_plain(x)),
-        "affine_apply": (lambda: K.affine_apply(x, a, b), lambda: K.affine_apply_plain(x, a, b)),
-        "pair_sums": (lambda: K.pair_sums(dy, x), lambda: K.pair_sums_plain(dy, x)),
-        "affine_dx": (lambda: K.affine_dx(dy, x, a, b, D), lambda: K.affine_dx_plain(dy, x, a, b, D)),
-    }
-    records = {}
-    for name, (kern, plain) in calls.items():
-        t_plain_1 = cuda_time_ms(plain)
-        t_kern_1 = cuda_time_ms(kern)
-        t_kern_2 = cuda_time_ms(kern)
-        t_plain_2 = cuda_time_ms(plain)
-        byts, ops = bounds[name]
-        bound = max(byts / bw, ops / f32_peak) * 1e3
-        records[name] = {
-            "ms": min(t_kern_1, t_kern_2), "plain_ms": min(t_plain_1, t_plain_2),
-            "bound_ms": bound,
-            "bound_by": "bytes" if byts / bw >= ops / f32_peak else "operations",
-            "library_ms": None, "max_abs_err": errs[name],
-        }
-        log(f"  {name}: kernel {records[name]['ms']:.4f} ms, plain "
-            f"{records[name]['plain_ms']:.4f} ms, bound {bound:.4f} ms")
+    nbytes = x.numel() * x.element_size()
+    elems = x.numel()
 
     # GroupNorm forward / backward as composites, beside one PyTorch call
     # computing the same function (a yardstick the port never calls)
@@ -233,6 +234,134 @@ def check_kernels(peaks):
                       "bound_ms": max(byts / bw, ops / f32_peak) * 1e3}
     log("gn composites at [3, 25680, 256] bf16 " + json.dumps(comp))
     return records
+
+
+def time_gn_kernels(peaks, n: int, m: int, c: int):
+    """Kernel and twin times of the four GroupNorm wrappers at one bf16
+    ``[n, m, c]`` shape, in turns (twin, kernel, kernel, twin), with their
+    bounds."""
+    from e_osvos_torch.ops import cuda_group_norm as K
+
+    bw, f32_peak = peaks
+    gen = torch.Generator(device="cpu").manual_seed(1)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    x = rand(n, m, c) * 2.0 + 0.5
+    dy = rand(n, m, c)
+    a, b, D = (rand(n, c, dtype=torch.float32) for _ in range(3))
+    elems = n * m * c
+    nbytes = elems * x.element_size()
+    bounds = {  # (bytes moved, f32 operations)
+        "channel_sums": (nbytes + 2 * n * c * 4, 2 * elems),
+        "affine_apply": (2 * nbytes + 2 * n * c * 4, 2 * elems),
+        "pair_sums": (2 * nbytes + 2 * n * c * 4, 2 * elems),
+        "affine_dx": (3 * nbytes + 3 * n * c * 4, 4 * elems),
+    }
+    calls = {
+        "channel_sums": (lambda: K.channel_sums(x), lambda: K.channel_sums_plain(x)),
+        "affine_apply": (lambda: K.affine_apply(x, a, b), lambda: K.affine_apply_plain(x, a, b)),
+        "pair_sums": (lambda: K.pair_sums(dy, x), lambda: K.pair_sums_plain(dy, x)),
+        "affine_dx": (lambda: K.affine_dx(dy, x, a, b, D), lambda: K.affine_dx_plain(dy, x, a, b, D)),
+    }
+    records = {}
+    for name, (kern, plain) in calls.items():
+        t_plain_1 = cuda_time_ms(plain)
+        t_kern_1 = cuda_time_ms(kern)
+        t_kern_2 = cuda_time_ms(kern)
+        t_plain_2 = cuda_time_ms(plain)
+        byts, ops = bounds[name]
+        bound = max(byts / bw, ops / f32_peak) * 1e3
+        records[name] = {
+            "ms": min(t_kern_1, t_kern_2), "plain_ms": min(t_plain_1, t_plain_2),
+            "bound_ms": bound,
+            "bound_by": "bytes" if byts / bw >= ops / f32_peak else "operations",
+            "library_ms": None,
+        }
+        log(f"  {name} at [{n}, {m}, {c}]: kernel {records[name]['ms']:.4f} ms, "
+            f"plain {records[name]['plain_ms']:.4f} ms, bound {bound:.4f} ms")
+    return records
+
+
+# the NMS cases: (name, N, max_out, IoU threshold)
+NMS_CASES = [("det_512x1", 512, 1, 0.5), ("det_512x4", 512, 4, 0.5),
+             ("rpn_4336x512", 4336, 512, 0.7), ("max_16384x64", 16384, 64, 0.5),
+             ("ragged_777", 777, 100, 0.5), ("all_invalid", 512, 8, 0.5),
+             ("ties", 2000, 300, 0.5)]
+
+
+def nms_inputs(name: str, n: int, gen: torch.Generator):
+    """Boxes in a 480x854 frame (sizes 8..300 px), scores in [0, 1) and
+    valid flags of one NMS case, on the card."""
+    xy = torch.rand(n, 2, generator=gen) * torch.tensor([854.0, 480.0])
+    wh = torch.exp(torch.rand(n, 2, generator=gen) * 3.6 + 2.1)
+    boxes = torch.cat([xy, xy + wh], 1)
+    scores = torch.rand(n, generator=gen)
+    valid = torch.rand(n, generator=gen) > 0.1
+    if name == "all_invalid":
+        valid[:] = False
+    if name == "ties":  # 16 distinct scores: many exact ties
+        scores = torch.floor(scores * 16) / 16
+    return boxes.cuda(), scores.cuda(), valid.cuda()
+
+
+def nms_bound(peaks, n: int, max_out: int, kept: int):
+    """(bound ms, bound_by) of one greedy NMS: each input read once (16
+    bytes of box, 4 of score, 1 of valid flag a box) and each output written
+    once (5 bytes a slot); about 15 f32 operations a box in each round
+    this run's data needs (the kept boxes, and the round that finds none
+    left)."""
+    bw, f32_peak = peaks
+    byts = 21 * n + 5 * max_out
+    ops = 15 * n * min(max_out, kept + 1)
+    return (max(byts / bw, ops / f32_peak) * 1e3,
+            "bytes" if byts / bw >= ops / f32_peak else "operations")
+
+
+def check_nms_kernel(peaks):
+    """K3 against its plain twin at every NMS case: idx and keep must be
+    identical. Returns the record at the detection path's (512, 1), with the
+    greedy RPN's (4336, 512) times logged beside it."""
+    from e_osvos_torch.ops import cuda_nms
+
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    timed = {}
+    for name, n, max_out, thr in NMS_CASES:
+        boxes, scores, valid = nms_inputs(name, n, gen)
+        idx, keep = cuda_nms.greedy_nms(boxes, scores, valid, thr, max_out)
+        idx_p, keep_p = cuda_nms.greedy_nms_plain(boxes, scores, valid, thr,
+                                                  max_out)
+        torch.cuda.synchronize()
+        same = torch.equal(idx, idx_p) and torch.equal(keep, keep_p)
+        kept = int(keep.sum())
+        log(f"  nms {name}: N={n} max_out={max_out} kept={kept} "
+            f"identical={same}")
+        if not same:
+            raise AssertionError(f"K3 disagrees with its twin at {name}")
+        if name == "all_invalid" and (kept or bool((idx != -1).any())):
+            raise AssertionError("K3 kept a box of an all-invalid input")
+        if name in ("det_512x1", "rpn_4336x512"):
+            t_plain_1 = cuda_time_ms(lambda: cuda_nms.greedy_nms_plain(
+                boxes, scores, valid, thr, max_out), iters=5, warmup=1)
+            t_kern_1 = cuda_time_ms(lambda: cuda_nms.greedy_nms(
+                boxes, scores, valid, thr, max_out))
+            t_kern_2 = cuda_time_ms(lambda: cuda_nms.greedy_nms(
+                boxes, scores, valid, thr, max_out))
+            t_plain_2 = cuda_time_ms(lambda: cuda_nms.greedy_nms_plain(
+                boxes, scores, valid, thr, max_out), iters=5, warmup=1)
+            bound, bound_by = nms_bound(peaks, n, max_out, kept)
+            timed[name] = {"ms": min(t_kern_1, t_kern_2),
+                           "plain_ms": min(t_plain_1, t_plain_2),
+                           "bound_ms": bound, "bound_by": bound_by,
+                           "library_ms": None, "max_abs_err": 0.0}
+            log(f"  nms {name}: kernel {timed[name]['ms']:.4f} ms, plain "
+                f"{timed[name]['plain_ms']:.4f} ms, bound {bound:.6f} ms "
+                f"({bound_by}; the floor is max_out dependent block-wide "
+                f"reductions, i.e. latency)")
+    # no single PyTorch call computes greedy NMS (torchvision is absent)
+    log("nms times " + json.dumps(timed))
+    return timed["det_512x1"]
 
 
 # ------------------------------------------------------------ main path
@@ -288,13 +417,16 @@ def stage_frames(index, device="cuda"):
 
 
 def timed_sequence(evaluator, meta_params, index, staged, name: str, T: int,
-                   seed: int):
+                   seed: int, generator_device: str = "cpu"):
     """The first object group of sequence ``name`` (first ``T`` staged
-    frames) through ``OneShotEvaluator._eval_object_group``, then threshold,
-    bit-pack and fetch to the host. Returns (probs, unpacked masks, phase
-    seconds on the device's timeline): the evaluator's ``on_phase`` hook
-    marks the ends of the fine-tune and the propagation with CUDA events;
-    ``fetched_s`` is the threshold, pack and host fetch."""
+    frames) through the evaluator's ``_eval_object_group`` (the DeepLab
+    ``OneShotEvaluator`` or the ``DetectionOneShotEvaluator``), then
+    threshold, bit-pack and fetch to the host. The random draws come from a
+    generator seeded with ``seed`` on ``generator_device``. Returns (probs,
+    unpacked masks, phase seconds on the device's timeline): the
+    evaluator's ``on_phase`` hook marks the ends of the fine-tune and the
+    propagation with CUDA events; ``fetched_s`` is the threshold, pack and
+    host fetch."""
     from e_osvos_torch.ops.bits import pack_mask_bits, unpack_mask_bits
 
     events = {}
@@ -306,7 +438,7 @@ def timed_sequence(evaluator, meta_params, index, staged, name: str, T: int,
     seq = index.sequences[name]
     group = seq.object_groups[0]
     frames = staged[name][:T]
-    gen = torch.Generator(device="cpu").manual_seed(seed)
+    gen = torch.Generator(device=generator_device).manual_seed(seed)
     evaluator.on_phase = mark
     mark("start")
     probs = evaluator._eval_object_group(
@@ -324,6 +456,7 @@ def timed_sequence(evaluator, meta_params, index, staged, name: str, T: int,
 
 def run_main_path():
     from e_osvos_torch.ops import cuda_group_norm as K
+    from e_osvos_torch.ops import cuda_nms
     from e_osvos_torch.ops.group_norm import FusedGroupNorm
 
     H, W = MAIN_HW
@@ -344,6 +477,7 @@ def run_main_path():
     log(f"warm-up sequence ({WARMUP_T} frames): {time.perf_counter() - t0:.3f} s")
 
     K.reset_launch_counts()
+    cuda_nms.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -351,8 +485,9 @@ def run_main_path():
                                           staged, "seq01", MAIN_T, 1)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = K.launch_counts()
-    want = expected_launches(cfg, MAIN_T, n_gn, K.LAUNCHES_PER_CALL)
+    counts = {**K.launch_counts(), **cuda_nms.launch_counts()}
+    want = {**expected_launches(cfg, MAIN_T, n_gn, K.LAUNCHES_PER_CALL),
+            "greedy_nms": 0}
     log(f"timed sequence ({MAIN_T} frames at {H}x{W}): {dt:.3f} s, "
         f"{MAIN_T / dt:.4f} fps; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -409,6 +544,180 @@ def check_reference():
         raise AssertionError(f"card and CPU disagree on the small slice: {err}")
 
 
+# ------------------------------------------------------- detection path
+
+DET_WARMUP_T = 7  # two windows: a fine-tune, a refit, 10 inferred frames
+
+
+def expected_detection_launches(cfg, T: int, n_gn: int, per_call):
+    """Launches one detection sequence implies (support frame 0, one
+    detection per frame): every GroupNorm of the backbone calls the forward
+    wrappers once per training step and once per inferred frame (the padded
+    tail included), the backward wrappers once per training step; K3 runs
+    once per inferred frame (the training forward's RPN takes Fast NMS)."""
+    step = cfg.online_adapt_step
+    windows = -(-(T - 1) // step)
+    steps = cfg.num_epochs + (windows - 1) * cfg.online_adapt_epochs
+    frames = windows * step
+    calls = {"channel_sums": steps + frames, "affine_apply": steps + frames,
+             "pair_sums": steps, "affine_dx": steps}
+    want = {k: v * n_gn * per_call[k] for k, v in calls.items()}
+    want["greedy_nms"] = frames
+    return want
+
+
+def build_detection_path(device="cuda"):
+    """scripts/bench_detection_ona.py's e-OSVOS-50-OnA configuration on the
+    port, with one detection per frame (the single-id VOS mode): full-width
+    resnet50 GroupNorm-32 FPN Mask R-CNN in bf16 with seeded random weights,
+    neuron-level linear lrs at 1e-4 with a learned init, EXTEND proposal
+    augmentation, OnA every 5 frames for 10 steps at min_prop 0.75, and
+    two synthetic 480x854 sequences of 67 frames."""
+    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
+    from e_osvos_torch.engine import (
+        DetectionOneShotConfig, DetectionOneShotEvaluator,
+    )
+    from e_osvos_torch.meta_optim import MetaOptimConfig, init_meta_params
+    from e_osvos_torch.models import MaskRCNN, RoIConfig, RPNConfig
+
+    model = MaskRCNN(arch="resnet50", backbone_norm="group",
+                     dtype=torch.bfloat16, rpn=RPNConfig(),
+                     roi=RoIConfig(detections_per_img=1), seed=0,
+                     device=device)
+    meta_cfg = MetaOptimConfig(lr_hierarchy_level="neuron", init_lr=1e-4,
+                               learn_model_init=True, use_log_init_lr=False)
+    meta_params = init_meta_params(meta_cfg, model)
+    cfg = DetectionOneShotConfig(num_epochs=50, batch_size=3,
+                                 online_adapt_step=5, online_adapt_epochs=10,
+                                 online_adapt_min_prop=0.75,
+                                 proposal_aug_mode="EXTEND")
+    evaluator = DetectionOneShotEvaluator(model, meta_cfg, cfg, device=device)
+    index = SyntheticVOSIndex(num_sequences=2, num_frames=MAIN_T,
+                              size=MAIN_HW, num_objects=1, seed=0)
+    return model, meta_params, evaluator, index
+
+
+def run_detection_path():
+    from e_osvos_torch.ops import cuda_group_norm as K
+    from e_osvos_torch.ops import cuda_nms
+    from e_osvos_torch.ops.group_norm import FusedGroupNorm
+
+    H, W = MAIN_HW
+    t0 = time.perf_counter()
+    model, meta_params, evaluator, index = build_detection_path()
+    n_gn = sum(isinstance(mod, FusedGroupNorm) and mod.use_kernel
+               for mod in model.modules())
+    staged = stage_frames(index)
+    torch.cuda.synchronize()
+    log(f"detection set-up (model, meta-params, staged frames): "
+        f"{time.perf_counter() - t0:.3f} s; {n_gn} GroupNorm layers on the "
+        f"kernels")
+
+    t0 = time.perf_counter()
+    timed_sequence(evaluator, meta_params, index, staged, "seq00",
+                   DET_WARMUP_T, 0, "cuda")
+    torch.cuda.synchronize()
+    log(f"detection warm-up sequence ({DET_WARMUP_T} frames): "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    K.reset_launch_counts()
+    cuda_nms.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs, masks, phases = timed_sequence(evaluator, meta_params, index,
+                                          staged, "seq01", MAIN_T, 1, "cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {**K.launch_counts(), **cuda_nms.launch_counts()}
+    want = expected_detection_launches(evaluator.cfg, MAIN_T, n_gn,
+                                       K.LAUNCHES_PER_CALL)
+    log(f"detection timed sequence ({MAIN_T} frames at {H}x{W}): {dt:.3f} s, "
+        f"{MAIN_T / dt:.4f} fps; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("detection phases (device timeline; fetched = threshold, pack and "
+        "host fetch) " + json.dumps(phases))
+    log("detection launch counts " + json.dumps(counts) + " expected "
+        + json.dumps(want))
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    if tuple(probs.shape) != (MAIN_T, H, W) or masks.shape != (MAIN_T, H, W):
+        raise AssertionError(f"output shapes {tuple(probs.shape)}, {masks.shape}")
+    if not bool(torch.isfinite(probs).all()):
+        raise AssertionError("non-finite probabilities on the detection path")
+    detected = (probs[1:] > 0).flatten(1).any(1).float().mean()
+    log(f"detection: share of frames with a non-empty detection "
+        f"{float(detected):.4f}; foreground share of the masks "
+        f"{float(masks[1:].mean()):.4f}")
+    return counts
+
+
+def check_detection_reference():
+    """The detection slice on a tiny fp32 Mask R-CNN, on the card and on
+    the CPU, with the same random numbers (drawn from a CPU generator):
+    probabilities within 1e-3 and the same NMS pick in every frame."""
+    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
+    from e_osvos_torch.data.transforms import AugmentConfig
+    from e_osvos_torch.engine import (
+        DetectionOneShotConfig, DetectionOneShotEvaluator,
+    )
+    from e_osvos_torch.meta_optim import MetaOptimConfig, init_meta_params
+    from e_osvos_torch.models import MaskRCNN, RoIConfig, RPNConfig
+    from e_osvos_torch.models import mask_rcnn
+
+    T = 5
+    index = SyntheticVOSIndex(num_sequences=1, num_frames=T, size=(64, 64),
+                              seed=3)
+    seq = index.sequences["seq00"]
+    cfg = DetectionOneShotConfig(
+        num_epochs=2, batch_size=3, online_adapt_step=2,
+        online_adapt_epochs=2, proposal_aug_mode="EXTEND",
+        augment=AugmentConfig(
+            scale_min=1.0, scale_max=1.0, rot_deg=0.0, brightness=0.0,
+            contrast=0.0, saturation=0.0, flip_prob=0.0,
+            compute_dtype="float32"))
+    meta_cfg = MetaOptimConfig(init_lr=1e-3, use_log_init_lr=False)
+    rpn = RPNConfig(anchor_sizes=(8, 16, 32, 64, 128), pre_nms_top_n=64,
+                    post_nms_top_n=32, batch_size_per_image=32)
+    roi = RoIConfig(batch_size_per_image=16, detections_per_img=1)
+    batched_nms = mask_rcnn.batched_nms
+    picks = {}
+
+    def recording_nms(*args, **kwargs):
+        idx, keep = batched_nms(*args, **kwargs)
+        picks[device].append(idx)
+        return idx, keep
+
+    out = {}
+    mask_rcnn.batched_nms = recording_nms
+    try:
+        for device in ("cpu", "cuda"):
+            picks[device] = []
+            model = MaskRCNN(arch="resnet10", backbone_norm="group4",
+                             rpn=rpn, roi=roi, seed=5, device=device)
+            meta_params = init_meta_params(meta_cfg, model)
+            ev = DetectionOneShotEvaluator(model, meta_cfg, cfg,
+                                           device=device)
+            frames = torch.from_numpy(np.stack(
+                [index.get_image("seq00", t) for t in range(T)])).to(device)
+            gen = torch.Generator(device="cpu").manual_seed(0)
+            out[device] = ev._eval_object_group(
+                index, seq, frames, seq.object_groups[0], meta_params, gen,
+                None).cpu()
+    finally:
+        mask_rcnn.batched_nms = batched_nms
+    err = (out["cpu"] - out["cuda"]).abs().max().item()
+    same = [torch.equal(a, b.cpu()) for a, b in zip(picks["cpu"],
+                                                     picks["cuda"])]
+    log(f"tiny fp32 detection slice, card vs CPU: max |dprob| = {err:.3e} "
+        f"(tol 1e-3); NMS picks of {len(same)} frames identical: {all(same)}")
+    if not err <= 1e-3:
+        raise AssertionError(f"card and CPU disagree on the detection slice: "
+                             f"{err}")
+    if len(picks["cpu"]) != len(picks["cuda"]) or not all(same) or not same:
+        raise AssertionError("card and CPU picked different detections")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -418,7 +727,29 @@ REPLACES = {
     # the elementwise passes XLA fused around the two Pallas kernels
     "affine_apply": "e_osvos_tpu/ops/pallas_group_norm.py:167",
     "affine_dx": "e_osvos_tpu/ops/pallas_group_norm.py:208",
+    "greedy_nms": "e_osvos_tpu/ops/pallas_nms.py:35",
 }
+SOURCES = {"channel_sums": "group_norm", "pair_sums": "group_norm",
+           "affine_apply": "group_norm", "affine_dx": "group_norm",
+           "greedy_nms": "nms"}
+
+
+def build_kernels():
+    """Every kernel source at once, one nvcc each; logs the compiler's
+    register and spill report."""
+    from e_osvos_torch.ops import cuda_build, cuda_group_norm, cuda_nms
+
+    t0 = time.perf_counter()
+    libs = cuda_build.build_all([(cuda_group_norm.NAME, ()),
+                                 (cuda_nms.NAME, cuda_nms.NVCC_EXTRA)])
+    cuda_group_norm._load()
+    cuda_nms._load()
+    log(f"build: {', '.join(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for so in libs.values():
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas ({so.name}): " + line.strip())
 
 
 def main() -> int:
@@ -427,7 +758,6 @@ def main() -> int:
         return 2
     # The port is imported from the checkout holding this script.
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from e_osvos_torch.ops import cuda_group_norm as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -440,33 +770,32 @@ def main() -> int:
     log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
     peaks = card_peaks(name)
+    build_kernels()
 
     t0 = time.perf_counter()
-    so = K.build()
-    K._load()
-    log(f"build: {so.name} in {time.perf_counter() - t0:.2f} s")
-    log_path = so.with_suffix(".log")
-    for line in log_path.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
-
-    t0 = time.perf_counter()
-    records = check_kernels(peaks)
+    records = check_gn_kernels(peaks)
+    records["greedy_nms"] = check_nms_kernel(peaks)
     log(f"kernel checks: {time.perf_counter() - t0:.2f} s")
 
-    t0 = time.perf_counter()
-    counts = run_main_path()
-    log(f"main path phase: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    check_reference()
-    log(f"reference phase: {time.perf_counter() - t0:.2f} s")
+    phases = (("DeepLab main path", run_main_path),
+              ("DeepLab reference", check_reference),
+              ("detection main path", run_detection_path),
+              ("detection reference", check_detection_reference))
+    launches = dict.fromkeys(records, 0)
+    for label, phase in phases:
+        t0 = time.perf_counter()
+        counts = phase()
+        for k, v in (counts or {}).items():
+            launches[k] += v
+        log(f"{label} phase: {time.perf_counter() - t0:.2f} s")
 
     kernels = []
     for kname, rec in records.items():
         kernels.append({
-            "name": f"gn_{kname}", "route": "cuda",
-            "source": "e_osvos_torch/csrc/group_norm.cu",
-            "replaces": REPLACES[kname], "launches": counts[kname],
+            "name": kname if kname == "greedy_nms" else f"gn_{kname}",
+            "route": "cuda",
+            "source": f"e_osvos_torch/csrc/{SOURCES[kname]}.cu",
+            "replaces": REPLACES[kname], "launches": launches[kname],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

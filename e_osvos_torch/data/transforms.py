@@ -63,19 +63,19 @@ class AugmentDraws(NamedTuple):
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
-    return lo + (hi - lo) * torch.rand(shape, generator=gen)
+    return lo + (hi - lo) * torch.rand(shape, generator=gen, device=gen.device)
 
 
 def sample_augment_draws(gen: torch.Generator, cfg: AugmentConfig,
                          shape: Union[int, Tuple[int, ...]]) -> AugmentDraws:
-    """Draw the factors of ``shape`` augmentations (on the generator's
-    device, the CPU by default)."""
+    """Draw the factors of ``shape`` augmentations, on the generator's
+    device."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     deg = math.pi / 180.0
     return AugmentDraws(
         scale=_uniform(gen, shape, cfg.scale_min, cfg.scale_max),
         theta=_uniform(gen, shape, -cfg.rot_deg, cfg.rot_deg) * deg,
-        flip=torch.rand(shape, generator=gen) < cfg.flip_prob,
+        flip=torch.rand(shape, generator=gen, device=gen.device) < cfg.flip_prob,
         brightness=_uniform(gen, shape, 1 - cfg.brightness, 1 + cfg.brightness),
         contrast=_uniform(gen, shape, 1 - cfg.contrast, 1 + cfg.contrast),
         saturation=_uniform(gen, shape, 1 - cfg.saturation, 1 + cfg.saturation),

@@ -16,7 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from e_osvos_torch.models.resnet import Conv, ResNet, make_norm
+from e_osvos_torch.models.resnet import (
+    Conv, ConvTranspose, Dense, ResNet, make_norm,
+)
 from e_osvos_torch.utils.device import resolve_device
 
 
@@ -85,13 +87,13 @@ def _dilate_stages(output_stride: int):
 
 
 def init_weights(model: nn.Module, seed: int) -> None:
-    """Seeded init with flax's defaults: convolution kernels lecun-normal
-    (normal truncated at two standard deviations, variance 1/fan_in),
-    biases 0; norms keep their ones/zeros."""
+    """Seeded init with flax's defaults: convolution and dense kernels
+    lecun-normal (normal truncated at two standard deviations, variance
+    1/fan_in), biases 0; norms keep their ones/zeros."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, Conv):
+            if isinstance(mod, (Conv, ConvTranspose, Dense)):
                 fan_in = math.prod(mod.weight.shape[1:])
                 # std of the unit normal truncated to [-2, 2]
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -191,10 +193,11 @@ def build_model(architecture: str, **kwargs) -> nn.Module:
 
 
 def functional_apply(model: nn.Module):
-    """``apply(params, imgs)`` over a dict of parameters, the counterpart of
-    flax's ``model.apply(variables, imgs)``; buffers stay the module's."""
+    """``apply(params, *args, **kwargs)`` over a dict of parameters, the
+    counterpart of flax's ``model.apply(variables, ...)``; buffers stay the
+    module's."""
 
-    def apply(params, imgs):
-        return torch.func.functional_call(model, params, (imgs,))
+    def apply(params, *args, **kwargs):
+        return torch.func.functional_call(model, params, args, kwargs)
 
     return apply

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 
 COLLECTIONS = ("params", "constants")
+# flax ``nn.ConvTranspose`` modules of the JAX package, by module name
+CONV_TRANSPOSE_MODULES = ("deconv",)
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -31,20 +33,32 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
             yield path, value
 
 
+def _kernel_to_port(path: Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
+    """A flax kernel (or a learning rate shaped against one) in the port's
+    layout."""
+    if arr.ndim == 0:  # a tensor-level learning rate
+        return arr
+    if arr.ndim == 2:  # dense (in, out) → [out, in]
+        return arr.T
+    if arr.ndim == 4:
+        arr = arr.transpose(3, 2, 0, 1)  # HWIO → OIHW
+        if len(path) > 1 and path[-2] in CONV_TRANSPOSE_MODULES:
+            arr = arr[:, :, ::-1, ::-1]
+        return arr
+    raise ValueError(f"{'/'.join(path)}: unexpected kernel shape {arr.shape}")
+
+
 def _convert_leaf(path: Tuple[str, ...], value) -> Tuple[str, torch.Tensor]:
     arr = np.array(value, dtype=np.float32)  # a writable copy
     leaf = path[-1]
     if leaf == "kernel":
-        if arr.ndim != 4:
-            raise ValueError(f"{'/'.join(path)}: expected an HWIO kernel, "
-                             f"got shape {arr.shape}")
-        arr = arr.transpose(3, 2, 0, 1)  # HWIO → OIHW
+        arr = _kernel_to_port(path, arr)
         leaf = "weight"
-    elif arr.ndim == 4:
+    elif arr.ndim in (2, 4):
         # a neuron- or param-level lr of a kernel already renamed upstream
-        raise ValueError(f"{'/'.join(path)}: unexpected 4-D leaf")
+        raise ValueError(f"{'/'.join(path)}: unexpected {arr.ndim}-D leaf")
     name = ".".join(path[:-1] + (leaf,))
-    return name, torch.from_numpy(np.ascontiguousarray(arr))
+    return name, torch.from_numpy(arr.copy())  # C order, positive strides
 
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:

@@ -43,6 +43,44 @@ class Conv(nn.Module):
                         self.stride, self.padding, self.dilation)
 
 
+class Dense(nn.Module):
+    """``nn.Dense`` of flax: weight ``[out, in]`` (float32, the transpose
+    of the flax kernel), bias ``[out]``; input and weights cast to
+    ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+class ConvTranspose(nn.Module):
+    """``nn.ConvTranspose`` of flax with ``padding="SAME"`` and kernel size
+    equal to the stride: each input pixel becomes one ``k x k`` output
+    tile. The weight is stored ``[O, I, kh, kw]`` (the neuron axis first,
+    as every other weight of the port) with the taps flipped from the flax
+    kernel, and handed to ``conv_transpose2d`` as ``[I, O, kh, kw]``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride = kernel
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(
+            x.to(self.dtype), self.weight.to(self.dtype).transpose(0, 1),
+            self.bias.to(self.dtype), stride=self.stride)
+
+
 class FrozenScaleBias(nn.Module):
     """Per-channel affine ``y = x·scale + bias`` with frozen constants.
 

@@ -1,2 +1,2 @@
-"""Operators of the PyTorch port: GroupNorm (with its CUDA kernels), losses
-and mask bit-packing."""
+"""Operators of the PyTorch port: GroupNorm and greedy NMS (with their CUDA
+kernels), boxes, Fast NMS, ROI-align, losses and mask bit-packing."""

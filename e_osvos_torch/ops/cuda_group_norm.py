@@ -24,31 +24,20 @@ Each wrapper counts the kernel launches it makes in ``<wrapper>.launches``
 (``LAUNCHES_PER_CALL`` per call on the card: two for the sums, one for the
 elementwise passes), never for the plain twin.
 
-The kernels are built at first use with ``nvcc`` into
-``build/e_osvos_torch_kernels/`` (keyed by the source's hash) and loaded with
-ctypes; a missing ``nvcc`` or a failed build raises.
+The kernels are built at first use by ``ops/cuda_build.py`` and loaded
+with ctypes; a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "group_norm.cu"
-BUILD_DIR = _PKG_DIR.parent / "build" / "e_osvos_torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from e_osvos_torch.ops import cuda_build
+
+NAME = "group_norm"  # csrc/group_norm.cu
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -60,48 +49,11 @@ LAUNCHES_PER_CALL = {"channel_sums": 2, "pair_sums": 2, "affine_apply": 1,
                      "affine_dx": 1}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the GroupNorm kernels cannot be built")
-
-
-def build() -> Path:
-    """Compile ``csrc/group_norm.cu`` (if its hash is not built yet) and
-    return the shared library's path. The compiler's report (registers,
-    shared memory, spills) is kept beside it as ``<hash>.log``."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"group_norm_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / f"group_norm_{digest}.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(str(build()))
+    lib = cuda_build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gn_rows_per_chunk.argtypes = []
     lib.gn_rows_per_chunk.restype = i
@@ -113,15 +65,6 @@ def _load() -> ctypes.CDLL:
     lib.gn_affine_dx.restype = i
     _lib = lib
     return lib
-
-
-def _is_cpu(*tensors: torch.Tensor) -> bool:
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds != {"cuda"}:
-        raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
-    return False
 
 
 def _check_nmc(*tensors: torch.Tensor) -> Tuple[int, int, int, int]:
@@ -149,15 +92,6 @@ def _check_coeffs(n: int, c: int, device, *coeffs: torch.Tensor) -> None:
                 or not t.is_contiguous() or t.device != device):
             raise ValueError("coefficients must be contiguous f32 [N, C] "
                              "on the operands' device")
-
-
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
 
 
 # ---- plain twins --------------------------------------------------------
@@ -201,15 +135,15 @@ def _sums(name: str, a: torch.Tensor, b: Optional[torch.Tensor]):
     err = lib.gn_channel_sums(
         a.data_ptr(), (a if b is None else b).data_ptr(), partial.data_ptr(),
         out1.data_ptr(), out2.data_ptr(), n, m, c, code, int(b is not None),
-        _stream(),
+        cuda_build.stream(),
     )
-    _raise_on(err, name)
+    cuda_build.raise_on(err, name)
     return out1, out2
 
 
 def channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: [N, M, C] → (Σx, Σx²) as f32 [N, C], one read of x."""
-    if _is_cpu(x):
+    if cuda_build.is_cpu(x):
         return channel_sums_plain(x)
     out = _sums("channel_sums", x, None)
     channel_sums.launches += LAUNCHES_PER_CALL["channel_sums"]
@@ -219,7 +153,7 @@ def channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def pair_sums(dy: torch.Tensor, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: [N, M, C] ×2 → (Σdy, Σdy·x) as f32 [N, C], one read of (dy, x)."""
-    if _is_cpu(dy, x):
+    if cuda_build.is_cpu(dy, x):
         return pair_sums_plain(dy, x)
     out = _sums("pair_sums", dy, x)
     pair_sums.launches += LAUNCHES_PER_CALL["pair_sums"]
@@ -229,16 +163,16 @@ def pair_sums(dy: torch.Tensor, x: torch.Tensor
 def affine_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
     """``x·a + b`` over [N, M, C] with f32 a/b of shape [N, C]; x's dtype."""
-    if _is_cpu(x, a, b):
+    if cuda_build.is_cpu(x, a, b):
         return affine_apply_plain(x, a, b)
     n, m, c, code = _check_nmc(x)
     _check_coeffs(n, c, x.device, a, b)
     y = torch.empty_like(x)
     err = _load().gn_affine(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), n, m, c, code,
-        _stream(),
+        cuda_build.stream(),
     )
-    _raise_on(err, "affine_apply")
+    cuda_build.raise_on(err, "affine_apply")
     affine_apply.launches += LAUNCHES_PER_CALL["affine_apply"]
     return y
 
@@ -246,16 +180,16 @@ def affine_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
 def affine_dx(dy: torch.Tensor, x: torch.Tensor, A: torch.Tensor,
               B: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
     """``dy·A + x·B + D`` over [N, M, C] with f32 A/B/D [N, C]; x's dtype."""
-    if _is_cpu(dy, x, A, B, D):
+    if cuda_build.is_cpu(dy, x, A, B, D):
         return affine_dx_plain(dy, x, A, B, D)
     n, m, c, code = _check_nmc(dy, x)
     _check_coeffs(n, c, x.device, A, B, D)
     dx = torch.empty_like(x)
     err = _load().gn_affine_dx(
         dy.data_ptr(), x.data_ptr(), A.data_ptr(), B.data_ptr(), D.data_ptr(),
-        dx.data_ptr(), n, m, c, code, _stream(),
+        dx.data_ptr(), n, m, c, code, cuda_build.stream(),
     )
-    _raise_on(err, "affine_dx")
+    cuda_build.raise_on(err, "affine_dx")
     affine_dx.launches += LAUNCHES_PER_CALL["affine_dx"]
     return dx
 

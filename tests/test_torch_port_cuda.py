@@ -1,4 +1,5 @@
-"""The GroupNorm kernels on the card against their plain twins.
+"""The GroupNorm kernels and the greedy NMS kernel (K3) on the card against
+their plain twins.
 
 Marked ``cuda``: they skip without a CUDA device (the kernels have no CPU
 mode) and run on a GPU machine with
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from e_osvos_torch.ops import cuda_group_norm as kernels
+from e_osvos_torch.ops import cuda_nms
 from e_osvos_torch.ops.group_norm import FusedGroupNorm, group_norm
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +85,63 @@ def test_wrappers_reject_bad_operands(cuda):
     y = torch.zeros(2, 16, 8, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError):
         kernels.channel_sums(y)
+
+
+# (N, max_out, IoU threshold): the detection path's, a ragged N, several
+# boxes a thread, the kernel's largest N
+NMS_SHAPES = [(512, 1, 0.5), (777, 100, 0.5), (4336, 512, 0.7),
+              (16384, 64, 0.5)]
+
+
+def _nms_inputs(n, seed, ties=False):
+    gen = torch.Generator().manual_seed(seed)
+    xy = torch.rand(n, 2, generator=gen) * 400
+    wh = torch.exp(torch.rand(n, 2, generator=gen) * 3.6 + 2.1)
+    scores = torch.rand(n, generator=gen)
+    if ties:
+        scores = torch.floor(scores * 8) / 8
+    valid = torch.rand(n, generator=gen) > 0.1
+    return torch.cat([xy, xy + wh], 1), scores, valid
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("n,max_out,thr", NMS_SHAPES)
+def test_nms_matches_twin(cuda, n, max_out, thr, ties):
+    """K3's idx and keep identical to the twin's on the same card tensors;
+    one launch per call."""
+    boxes, scores, valid = (t.to(cuda) for t in _nms_inputs(n, n, ties))
+    cuda_nms.reset_launch_counts()
+    idx, keep = cuda_nms.greedy_nms(boxes, scores, valid, thr, max_out)
+    assert cuda_nms.launch_counts() == {"greedy_nms": 1}
+    want_i, want_k = cuda_nms.greedy_nms_plain(boxes, scores, valid, thr,
+                                               max_out)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, want_i) and torch.equal(keep, want_k)
+    assert int(keep.sum()) > 0
+
+
+def test_nms_batch_and_edge_inputs(cuda):
+    """A batch of images (grid = B), an all-invalid image, -inf scores and
+    max_out past the alive boxes: -1 / False padding as the twin gives."""
+    boxes, scores, valid = _nms_inputs(300, 1)
+    scores[::5] = -torch.inf
+    b = torch.stack([boxes, boxes + 3.0, boxes])
+    s = torch.stack([scores, scores.flip(0), scores])
+    v = torch.stack([valid, valid, torch.zeros_like(valid)])
+    args = [t.to(cuda).contiguous() for t in (b, s, v)]
+    idx, keep = cuda_nms.greedy_nms(*args, 0.5, 400)
+    want_i, want_k = cuda_nms.greedy_nms_plain(*args, 0.5, 400)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, want_i) and torch.equal(keep, want_k)
+    assert (idx[2] == -1).all() and not keep[2].any()
+
+
+def test_nms_rejects_bad_operands(cuda):
+    boxes, scores, valid = (t.to(cuda) for t in _nms_inputs(64, 2))
+    with pytest.raises(TypeError):
+        cuda_nms.greedy_nms(boxes.double(), scores, valid, 0.5, 4)
+    with pytest.raises(ValueError):
+        cuda_nms.greedy_nms(boxes.t(), scores, valid, 0.5, 4)
+    big = [t.to(cuda) for t in _nms_inputs(16385, 3)]
+    with pytest.raises(ValueError):
+        cuda_nms.greedy_nms(*big, 0.5, 4)

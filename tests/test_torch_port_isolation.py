@@ -35,7 +35,10 @@ def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "e_osvos_torch/ops/cuda_group_norm.py" in names
     assert "e_osvos_torch/engine/one_shot.py" in names
-    assert (ROOT / "e_osvos_torch" / "csrc" / "group_norm.cu").exists()
+    assert "e_osvos_torch/ops/cuda_nms.py" in names
+    assert "e_osvos_torch/engine/one_shot_detection.py" in names
+    for source in ("group_norm.cu", "nms.cu"):
+        assert (ROOT / "e_osvos_torch" / "csrc" / source).exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
