@@ -8,14 +8,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   2. build: compiles the kernels (e_osvos_torch/csrc/*.cu) with nvcc, one
      process per source, all at once;
   3. kernels: each kernel against its plain PyTorch twin on the card. The
-     GroupNorm passes in bf16 at the DeepLab decoder's shapes
-     [3|4|5, 120*214, 256], at the Mask R-CNN backbone's GroupNorm-32 shapes
-     (C = 64 at 102480 rows to C = 2048 at 405 rows) and at edge shapes;
-     greedy NMS (K3) at the detection path's (N = 512, max_out = 1), the
-     greedy RPN's (4336, 512), the kernel's largest N = 16384, a ragged N,
-     an all-invalid input and exact score ties, where idx and keep must be
-     identical. With times of the kernel, the twin and, where one exists,
-     a single PyTorch call computing the same function;
+     GroupNorm passes (statistics with their group algebra, apply, dx) in
+     bf16 at the DeepLab decoder's shapes [3|4|5, 120*214, 256], at the
+     Mask R-CNN backbone's GroupNorm-32 shapes (C = 64 at 102480 rows to
+     C = 2048 at 405 rows) and at edge shapes; greedy NMS (K3) at the
+     detection path's (N = 512, max_out = 1), the greedy RPN's (4336, 512), the
+     kernel's largest N = 16384, a ragged N, an all-invalid input and exact
+     score ties, where idx and keep must be identical. With times of the
+     kernel, the twin and, where one exists, a single PyTorch call computing
+     the same function (GroupNorm: device time from CUDA graphs over inputs
+     three times the L2 cache, and the eager call beside it);
   4. DeepLab main path: e-OSVOS-50-OnA one-shot evaluation (bench.py's
      configuration) with a full-width resnet50 os16 frozen-BN DeepLabV3+ in
      bf16 at 480x854, seeded random weights: a 16-frame warm-up sequence,
@@ -39,7 +41,9 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -91,13 +95,23 @@ GN_BACKBONE_SHAPES = [(3, 240 * 427, 64, 32), (3, 15 * 27, 2048, 32),
                       (1, 30 * 54, 1024, 32), (4, 60 * 107, 512, 32)]
 
 
+def worst_ratio(got, want, tol, floor):
+    """(max abs error, max error over ``tol`` times the largest magnitude of
+    ``want`` or ``floor``) of two tuples of tensors; the ratio must stay <=
+    1."""
+    err = ratio = 0.0
+    for k, p in zip(got, want):
+        e = (k.float() - p.float()).abs().max().item()
+        err = max(err, e)
+        ratio = max(ratio, e / (tol * max(floor, p.float().abs().max().item())))
+    return err, ratio
+
+
 def check_gn_kernels(peaks):
     """Each GroupNorm kernel against its plain twin; returns the kernels'
     records (without launch counts, which come from the main paths)."""
     from e_osvos_torch.ops import cuda_group_norm as K
-    from e_osvos_torch.ops.group_norm import (
-        GroupNormFunction, fused_group_norm, group_norm,
-    )
+    from e_osvos_torch.ops.group_norm import fused_group_norm, group_norm
 
     dev = torch.device("cuda")
     bf = torch.bfloat16
@@ -108,45 +122,45 @@ def check_gn_kernels(peaks):
         return t.to(dev, dtype)
 
     # (N, M, C, groups): DeepLab batches, the Mask R-CNN backbone, then the
-    # edge shapes
+    # edge shapes (C = 36 is not a multiple of 8: the scalar variant)
     shapes = [(3, GN_M, GN_C, 16), (4, GN_M, GN_C, 16), (5, GN_M, GN_C, 16),
               *GN_BACKBONE_SHAPES,
               (3, GN_M, 48, 16), (3, 1, GN_C, 16), (2, 1000, GN_C, 16),
-              (1, 777, 48, 16), (1, 30 * 54, GN_C, 16)]
-    # Tolerances. Sums are f32 over bf16 inputs, taken in another order than
-    # the twin: relative 1e-4 of the sum of magnitudes. The bf16 outputs may
-    # differ by one bf16 rounding step (2^-8 relative) where the kernel's
-    # FMA and the twin's separate multiply and add round differently:
-    # 1e-2 of the largest magnitude. The parameter gradients are sums of
-    # bf16 products over N*M rows: relative 1e-3.
-    tol_sum, tol_out, tol_param = 1e-4, 1e-2, 1e-3
-    errs = {"channel_sums": 0.0, "affine_apply": 0.0, "pair_sums": 0.0,
-            "affine_dx": 0.0}
-    worst = {k: 0.0 for k in errs}  # err / tolerance-scale, must stay <= 1
+              (1, 777, 48, 16), (1, 30 * 54, GN_C, 16), (2, 1000, 36, 4)]
+    # Tolerances. The statistics are f32 sums over bf16 inputs, taken in
+    # another order than the twin: a, b, mean, rstd within 1e-4 of the
+    # largest magnitude (at least 1). The backward coefficients and the
+    # parameter gradients are sums of bf16 products over N*M rows: 1e-3 of
+    # the largest magnitude. The bf16 outputs may differ by one bf16
+    # rounding step (2^-8 relative) where the kernel's FMA and the twin's
+    # separate multiply and add round differently: 1e-2 of the largest
+    # magnitude (at least 1).
+    tol_stat, tol_coef, tol_out = 1e-4, 1e-3, 1e-2
+    errs = dict.fromkeys(("group_stats", "affine_apply", "group_grad_coeffs",
+                          "affine_dx"), 0.0)
+    worst = dict(errs)  # err / tolerance-scale, must stay <= 1
+
+    def note(name, err_ratio):
+        errs[name] = max(errs[name], err_ratio[0])
+        worst[name] = max(worst[name], err_ratio[1])
+
     for n, m, c, g in shapes:
         x = rand(n, m, c, scale=2.0, shift=0.5)
         dy = rand(n, m, c)
         scale = rand(c, dtype=torch.float32, scale=0.5, shift=1.0)
         bias = rand(c, dtype=torch.float32, scale=0.5)
 
-        s_k, sq_k = K.channel_sums(x)
-        s_p, sq_p = K.channel_sums_plain(x)
-        mag = x.float().abs().sum(1)
-        e = max((s_k - s_p).abs().max().item(), (sq_k - sq_p).abs().max().item())
-        r = max(((s_k - s_p).abs() / (tol_sum * mag + 1e-6)).max().item(),
-                ((sq_k - sq_p).abs() / (tol_sum * (x.float() ** 2).sum(1) + 1e-6)).max().item())
-        errs["channel_sums"] = max(errs["channel_sums"], e)
-        worst["channel_sums"] = max(worst["channel_sums"], r)
+        want = K.group_stats_plain(x, scale, bias, g, 1e-6)
+        note("group_stats", worst_ratio(K.group_stats(x, scale, bias, g, 1e-6),
+                                        want, tol_stat, 1.0))
+        mean, rstd = want[2], want[3]
+        note("group_grad_coeffs", worst_ratio(
+            K.group_grad_coeffs(dy, x, scale, mean, rstd, g),
+            K.group_grad_coeffs_plain(dy, x, scale, mean, rstd, g),
+            tol_coef, 1e-6))
 
-        p1_k, p2_k = K.pair_sums(dy, x)
-        p1_p, p2_p = K.pair_sums_plain(dy, x)
-        e = max((p1_k - p1_p).abs().max().item(), (p2_k - p2_p).abs().max().item())
-        r = max(((p1_k - p1_p).abs() / (tol_sum * dy.float().abs().sum(1) + 1e-6)).max().item(),
-                ((p2_k - p2_p).abs() / (tol_sum * (dy.float() * x.float()).abs().sum(1) + 1e-6)).max().item())
-        errs["pair_sums"] = max(errs["pair_sums"], e)
-        worst["pair_sums"] = max(worst["pair_sums"], r)
-
-        # K1 + apply through the autograd.Function vs the plain group_norm
+        # the whole forward through the autograd.Function (group_stats and
+        # the apply pass) vs the plain group_norm
         xr = x.clone().requires_grad_(True)
         sr = scale.clone().requires_grad_(True)
         br = bias.clone().requires_grad_(True)
@@ -155,133 +169,233 @@ def check_gn_kernels(peaks):
         sp = scale.clone().requires_grad_(True)
         bp = bias.clone().requires_grad_(True)
         y_p = group_norm(xp, sp, bp, g)
-        e = (y_k.float() - y_p.float()).abs().max().item()
-        errs["affine_apply"] = max(errs["affine_apply"], e)
-        worst["affine_apply"] = max(
-            worst["affine_apply"], e / (tol_out * max(1.0, y_p.float().abs().max().item())))
+        note("affine_apply", worst_ratio((y_k,), (y_p,), tol_out, 1.0))
 
-        # K2 + dx via the Function's backward vs autograd through the twin
+        # the whole backward (group_grad_coeffs and the dx pass) vs autograd
+        # through the twin
         gk = torch.autograd.grad(y_k, (xr, sr, br), dy)
         gp = torch.autograd.grad(y_p, (xp, sp, bp), dy)
-        e = (gk[0].float() - gp[0].float()).abs().max().item()
-        errs["affine_dx"] = max(errs["affine_dx"], e)
-        worst["affine_dx"] = max(
-            worst["affine_dx"], e / (tol_out * max(1.0, gp[0].float().abs().max().item())))
-        for a, b_ in zip(gk[1:], gp[1:]):
-            rp = ((a - b_).abs().max() / (tol_param * max(1.0, b_.abs().max().item()))).item()
-            worst["pair_sums"] = max(worst["pair_sums"], rp)
+        note("affine_dx", worst_ratio(gk[:1], gp[:1], tol_out, 1.0))
+        note("group_grad_coeffs",
+             (0.0, worst_ratio(gk[1:], gp[1:], tol_coef, 1.0)[1]))
         log(f"  shape N={n} M={m} C={c} G={g}: ok so far, worst err/tol "
             + json.dumps({k: round(v, 4) for k, v in worst.items()}))
     torch.cuda.synchronize()
     log("kernel max_abs_err " + json.dumps(errs))
-    log(f"tolerances: sums rel {tol_sum}, bf16 outputs {tol_out} x max|ref|, "
-        f"param grads rel {tol_param}")
+    log(f"tolerances: statistics {tol_stat}, backward coefficients and "
+        f"parameter grads {tol_coef}, bf16 outputs {tol_out}, each times the "
+        f"largest magnitude")
     bad = {k: v for k, v in worst.items() if not v <= 1.0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain twins: {bad}")
 
     # ---- times at the DeepLab fine-tune shape [3, 25680, 256] (the kernels
     # line) and at the Mask R-CNN stem's [3, 102480, 64] ----
-    records = time_gn_kernels(peaks, 3, GN_M, GN_C)
-    stem = time_gn_kernels(peaks, 3, 240 * 427, 64)
+    records = time_gn_kernels(peaks, 3, GN_M, GN_C, 16)
+    stem = time_gn_kernels(peaks, 3, 240 * 427, 64, 32)
     log("gn kernels at the Mask R-CNN stem [3, 102480, 64] bf16 " + json.dumps(
-        {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms")}
+        {k: {f: v[f] for f in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                               "library_ms")}
          for k, v in stem.items()}))
     for name in records:
         records[name]["max_abs_err"] = errs[name]
-
-    bw, f32_peak = peaks
-    n, m, c, g = 3, GN_M, GN_C, 16
-    x = rand(n, m, c, scale=2.0, shift=0.5)
-    dy = rand(n, m, c)
-    scale = rand(c, dtype=torch.float32, scale=0.5, shift=1.0)
-    bias = rand(c, dtype=torch.float32, scale=0.5)
-    nbytes = x.numel() * x.element_size()
-    elems = x.numel()
-
-    # GroupNorm forward / backward as composites, beside one PyTorch call
-    # computing the same function (a yardstick the port never calls)
-    x4 = x.view(n, 120, 214, c).permute(0, 3, 1, 2)  # NCHW, channels_last
-    # the library's backward takes NCHW-contiguous operands
-    x4c, dy4c = x4.contiguous(), dy.view(n, 120, 214, c).permute(0, 3, 1, 2).contiguous()
-    y, mean, rstd = GroupNormFunction.apply(x, scale, bias, g, 1e-6)
-    _, lmean, lrstd = torch.ops.aten.native_group_norm(
-        x4c, scale.to(bf), bias.to(bf), n, c, m, g, 1e-6)
-
-    def fwd():
-        return GroupNormFunction.forward(x, scale, bias, g, 1e-6)
-
-    def bwd():
-        class _Ctx:  # the residuals the forward saved
-            saved_tensors = (x, scale, mean, rstd)
-            num_groups = g
-        return GroupNormFunction.backward(_Ctx, dy, None, None)
-
-    composites = {
-        "gn_forward": (fwd, lambda: torch.nn.functional.group_norm(
-            x4, g, scale.to(bf), bias.to(bf), 1e-6),
-            (2 * nbytes, 4 * elems)),
-        "gn_backward": (bwd, lambda: torch.ops.aten.native_group_norm_backward(
-            dy4c, x4c, lmean, lrstd, scale.to(bf), n, c, m, g,
-            [True, True, True]), (3 * nbytes, 8 * elems)),
-    }
-    comp = {}
-    for name, (kern, lib, (byts, ops)) in composites.items():
-        t_lib_1 = cuda_time_ms(lib)
-        t_k = cuda_time_ms(kern)
-        t_lib_2 = cuda_time_ms(lib)
-        comp[name] = {"ms": t_k, "library_ms": min(t_lib_1, t_lib_2),
-                      "bound_ms": max(byts / bw, ops / f32_peak) * 1e3}
-    log("gn composites at [3, 25680, 256] bf16 " + json.dumps(comp))
+    time_gn_composites(peaks)
+    split_gn_statistics()
     return records
 
 
-def time_gn_kernels(peaks, n: int, m: int, c: int):
-    """Kernel and twin times of the four GroupNorm wrappers at one bf16
-    ``[n, m, c]`` shape, in turns (twin, kernel, kernel, twin), with their
-    bounds."""
+def split_gn_statistics():
+    """Device time of each kernel inside the two statistics wrappers (the
+    partial sums, then the finalize), from torch.profiler over 20 calls at
+    the decoder's and the stem's shapes; logged only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from e_osvos_torch.ops import cuda_group_norm as K
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for n, m, c, g in ((3, GN_M, GN_C, 16), (3, 240 * 427, 64, 32)):
+        sets = [tuple(torch.randn(n, m, c, device="cuda", generator=gen,
+                                  dtype=torch.bfloat16) for _ in range(2))
+                for _ in range(3)]
+        scale = torch.ones(c, device="cuda")
+        _, _, mean, rstd = K.group_stats(sets[0][0], scale, scale, g, 1e-6)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(20):
+                x, dy = sets[i % 3]
+                K.group_stats(x, scale, scale, g, 1e-6)
+                K.group_grad_coeffs(dy, x, scale, mean, rstd, g)
+            torch.cuda.synchronize()
+        split = {}  # kernel<backward?> -> ms a launch
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", None) or getattr(
+                ev, "cuda_time_total", 0)
+            for kname in ("partial_sums_kernel", "group_finalize_kernel"):
+                if kname in ev.key and ev.count and t:
+                    pair = "true" in ev.key.split(kname)[1].split(">")[0]
+                    split[f"{kname}<{'backward' if pair else 'forward'}>"] = (
+                        t / ev.count / 1e3)
+        log(f"  statistics kernels' device ms a launch at [{n}, {m}, {c}] "
+            + (json.dumps(split) if split else "not measured (no device "
+               "events)"))
+
+
+L2_BYTES = 50e6  # H100 L2 cache
+
+
+def graph_time_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one ``fn()``: ``calls`` calls captured in one CUDA
+    graph after a warm-up on a side stream, the graph replayed ``replays``
+    times between CUDA events. The host's launch cost is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def rotating(fn, sets):
+    """``fn`` over input sets in turn, one set a call."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def time_gn_kernels(peaks, n: int, m: int, c: int, g: int):
+    """Times of the four GroupNorm wrappers at one bf16 ``[n, m, c]``
+    shape with their bounds: kernel, twin and library call as device time
+    (CUDA graphs; twin, kernel, kernel, twin), and the kernel's eager call
+    (host launch included). The inputs rotate over sets that together hold
+    more than three times the L2 cache, so every call reads device
+    memory."""
     from e_osvos_torch.ops import cuda_group_norm as K
 
     bw, f32_peak = peaks
-    gen = torch.Generator(device="cpu").manual_seed(1)
+    gen = torch.Generator(device="cuda").manual_seed(1)
 
     def rand(*shape, dtype=torch.bfloat16):
-        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+        return torch.randn(*shape, device="cuda", generator=gen, dtype=dtype)
 
-    x = rand(n, m, c) * 2.0 + 0.5
-    dy = rand(n, m, c)
-    a, b, D = (rand(n, c, dtype=torch.float32) for _ in range(3))
     elems = n * m * c
-    nbytes = elems * x.element_size()
+    nbytes = elems * 2
+    sets = [(rand(n, m, c) * 2.0 + 0.5, rand(n, m, c))
+            for _ in range(max(3, math.ceil(3 * L2_BYTES / nbytes)))]
+    scale = rand(c, dtype=torch.float32) * 0.5 + 1.0
+    bias = rand(c, dtype=torch.float32)
+    _, _, mean, rstd = K.group_stats_plain(sets[0][0], scale, bias, g, 1e-6)
+    a, b, D = (rand(n, c, dtype=torch.float32) for _ in range(3))
+    nc4, ng4, c4 = n * c * 4, n * g * 4, c * 4
     bounds = {  # (bytes moved, f32 operations)
-        "channel_sums": (nbytes + 2 * n * c * 4, 2 * elems),
-        "affine_apply": (2 * nbytes + 2 * n * c * 4, 2 * elems),
-        "pair_sums": (2 * nbytes + 2 * n * c * 4, 2 * elems),
-        "affine_dx": (3 * nbytes + 3 * n * c * 4, 4 * elems),
+        "group_stats": (nbytes + 2 * c4 + 2 * nc4 + 2 * ng4, 3 * elems),
+        "affine_apply": (2 * nbytes + 2 * nc4, 2 * elems),
+        "group_grad_coeffs": (2 * nbytes + c4 + 2 * ng4 + 3 * nc4 + 2 * c4,
+                              3 * elems),
+        "affine_dx": (3 * nbytes + 3 * nc4, 4 * elems),
     }
-    calls = {
-        "channel_sums": (lambda: K.channel_sums(x), lambda: K.channel_sums_plain(x)),
-        "affine_apply": (lambda: K.affine_apply(x, a, b), lambda: K.affine_apply_plain(x, a, b)),
-        "pair_sums": (lambda: K.pair_sums(dy, x), lambda: K.pair_sums_plain(dy, x)),
-        "affine_dx": (lambda: K.affine_dx(dy, x, a, b, D), lambda: K.affine_dx_plain(dy, x, a, b, D)),
+    calls = {  # (kernel, twin, one library call computing the same or None)
+        "group_stats": (
+            lambda x, dy: K.group_stats(x, scale, bias, g, 1e-6),
+            lambda x, dy: K.group_stats_plain(x, scale, bias, g, 1e-6),
+            lambda x, dy: torch.var_mean(x, dim=1, correction=0)),
+        "affine_apply": (lambda x, dy: K.affine_apply(x, a, b),
+                         lambda x, dy: K.affine_apply_plain(x, a, b), None),
+        "group_grad_coeffs": (
+            lambda x, dy: K.group_grad_coeffs(dy, x, scale, mean, rstd, g),
+            lambda x, dy: K.group_grad_coeffs_plain(dy, x, scale, mean, rstd, g),
+            None),
+        "affine_dx": (lambda x, dy: K.affine_dx(dy, x, a, b, D),
+                      lambda x, dy: K.affine_dx_plain(dy, x, a, b, D), None),
     }
     records = {}
-    for name, (kern, plain) in calls.items():
-        t_plain_1 = cuda_time_ms(plain)
-        t_kern_1 = cuda_time_ms(kern)
-        t_kern_2 = cuda_time_ms(kern)
-        t_plain_2 = cuda_time_ms(plain)
+    for name, (kern, plain, lib) in calls.items():
+        kern, plain = rotating(kern, sets), rotating(plain, sets)
+        t_plain_1 = graph_time_ms(plain)
+        t_kern_1 = graph_time_ms(kern)
+        t_kern_2 = graph_time_ms(kern)
+        t_plain_2 = graph_time_ms(plain)
+        t_eager = cuda_time_ms(kern)
+        t_lib = graph_time_ms(rotating(lib, sets)) if lib else None
         byts, ops = bounds[name]
         bound = max(byts / bw, ops / f32_peak) * 1e3
         records[name] = {
             "ms": min(t_kern_1, t_kern_2), "plain_ms": min(t_plain_1, t_plain_2),
             "bound_ms": bound,
             "bound_by": "bytes" if byts / bw >= ops / f32_peak else "operations",
-            "library_ms": None,
+            "library_ms": t_lib, "eager_ms": t_eager,
         }
-        log(f"  {name} at [{n}, {m}, {c}]: kernel {records[name]['ms']:.4f} ms, "
-            f"plain {records[name]['plain_ms']:.4f} ms, bound {bound:.4f} ms")
+        log(f"  {name} at [{n}, {m}, {c}] G={g}: kernel {t_kern_1:.4f} / "
+            f"{t_kern_2:.4f} ms, eager call {t_eager:.4f} ms, plain "
+            f"{records[name]['plain_ms']:.4f} ms, library "
+            f"{'-' if t_lib is None else f'{t_lib:.4f}'} ms, bound "
+            f"{bound:.4f} ms ({len(sets)} input sets)")
     return records
+
+
+def time_gn_composites(peaks):
+    """A GroupNorm forward and backward through ``GroupNormFunction`` beside
+    one PyTorch call computing the same (a yardstick the port never calls),
+    at the decoder's [3, 25680, 256] bf16, in turns (library, port, port,
+    library): eager (host launch included) and as device time."""
+    from e_osvos_torch.ops.group_norm import GroupNormFunction
+
+    bw, f32_peak = peaks
+    bf = torch.bfloat16
+    n, m, c, g = 3, GN_M, GN_C, 16
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(n, m, c, device="cuda", generator=gen, dtype=bf) * 2 + 0.5
+    dy = torch.randn(n, m, c, device="cuda", generator=gen, dtype=bf)
+    scale = torch.randn(c, device="cuda", generator=gen) * 0.5 + 1.0
+    bias = torch.randn(c, device="cuda", generator=gen) * 0.5
+    nbytes, elems = x.numel() * 2, x.numel()
+    x4 = x.view(n, 120, 214, c).permute(0, 3, 1, 2)  # NCHW, channels_last
+    # the library's backward takes NCHW-contiguous operands
+    x4c = x4.contiguous()
+    dy4c = dy.view(n, 120, 214, c).permute(0, 3, 1, 2).contiguous()
+    _, mean, rstd = GroupNormFunction.apply(x, scale, bias, g, 1e-6)
+    _, lmean, lrstd = torch.ops.aten.native_group_norm(
+        x4c, scale.to(bf), bias.to(bf), n, c, m, g, 1e-6)
+
+    class _Ctx:  # the residuals the forward saved
+        saved_tensors = (x, scale, mean, rstd)
+        num_groups = g
+
+    composites = {
+        "gn_forward": (
+            lambda: GroupNormFunction.forward(x, scale, bias, g, 1e-6),
+            lambda: torch.nn.functional.group_norm(x4, g, scale.to(bf),
+                                                   bias.to(bf), 1e-6),
+            (2 * nbytes, 4 * elems)),
+        "gn_backward": (
+            lambda: GroupNormFunction.backward(_Ctx, dy, None, None),
+            lambda: torch.ops.aten.native_group_norm_backward(
+                dy4c, x4c, lmean, lrstd, scale.to(bf), n, c, m, g,
+                [True, True, True]),
+            (3 * nbytes, 8 * elems)),
+    }
+    comp = {}
+    for name, (kern, lib, (byts, ops)) in composites.items():
+        rec = {"bound_ms": max(byts / bw, ops / f32_peak) * 1e3}
+        for how, timer in (("eager", cuda_time_ms), ("device", graph_time_ms)):
+            t_lib_1 = timer(lib)
+            t_k = min(timer(kern), timer(kern))
+            t_lib_2 = timer(lib)
+            rec[f"{how}_ms"] = t_k
+            rec[f"{how}_library_ms"] = min(t_lib_1, t_lib_2)
+        comp[name] = rec
+    log("gn composites at [3, 25680, 256] bf16 " + json.dumps(comp))
 
 
 # the NMS cases: (name, N, max_out, IoU threshold)
@@ -377,8 +491,8 @@ def expected_launches(cfg, T: int, n_gn: int, per_call):
     refits = windows - 1
     backwards = cfg.num_epochs + refits * cfg.online_adapt_epochs
     forwards = backwards + windows
-    calls = {"channel_sums": forwards, "affine_apply": forwards,
-             "pair_sums": backwards, "affine_dx": backwards}
+    calls = {"group_stats": forwards, "affine_apply": forwards,
+             "group_grad_coeffs": backwards, "affine_dx": backwards}
     return {k: v * n_gn * per_call[k] for k, v in calls.items()}
 
 
@@ -559,8 +673,8 @@ def expected_detection_launches(cfg, T: int, n_gn: int, per_call):
     windows = -(-(T - 1) // step)
     steps = cfg.num_epochs + (windows - 1) * cfg.online_adapt_epochs
     frames = windows * step
-    calls = {"channel_sums": steps + frames, "affine_apply": steps + frames,
-             "pair_sums": steps, "affine_dx": steps}
+    calls = {"group_stats": steps + frames, "affine_apply": steps + frames,
+             "group_grad_coeffs": steps, "affine_dx": steps}
     want = {k: v * n_gn * per_call[k] for k, v in calls.items()}
     want["greedy_nms"] = frames
     return want
@@ -722,14 +836,14 @@ def check_detection_reference():
 
 
 REPLACES = {
-    "channel_sums": "e_osvos_tpu/ops/pallas_group_norm.py:47",
-    "pair_sums": "e_osvos_tpu/ops/pallas_group_norm.py:63",
+    "group_stats": "e_osvos_tpu/ops/pallas_group_norm.py:47",
+    "group_grad_coeffs": "e_osvos_tpu/ops/pallas_group_norm.py:63",
     # the elementwise passes XLA fused around the two Pallas kernels
     "affine_apply": "e_osvos_tpu/ops/pallas_group_norm.py:167",
     "affine_dx": "e_osvos_tpu/ops/pallas_group_norm.py:208",
     "greedy_nms": "e_osvos_tpu/ops/pallas_nms.py:35",
 }
-SOURCES = {"channel_sums": "group_norm", "pair_sums": "group_norm",
+SOURCES = {"group_stats": "group_norm", "group_grad_coeffs": "group_norm",
            "affine_apply": "group_norm", "affine_dx": "group_norm",
            "greedy_nms": "nms"}
 

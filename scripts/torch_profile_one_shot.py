@@ -36,7 +36,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 
-GN_KERNELS = ("partial_sums_kernel", "combine_partials_kernel",
+GN_KERNELS = ("partial_sums_kernel", "group_finalize_kernel",
               "affine_kernel", "affine_dx_kernel")
 
 

@@ -31,25 +31,118 @@ def cuda():
 
 # (N, M, C): ragged chunk tail, C not a multiple of 32, M = 1
 SHAPES = [(2, 300, 64), (1, 257, 48), (3, 1, 256)]
+# (N, M, C, G) of the statistics wrappers: SHAPES, then C = 36 (not a
+# multiple of 8: the scalar variant in bf16) and C = 30 (scalar in f32 too)
+STAT_SHAPES = [(2, 300, 64, 32), (1, 257, 48, 16), (3, 1, 256, 16),
+               (2, 129, 36, 4), (1, 50, 30, 5)]
+
+
+def _stat_inputs(shape, dtype, device, seed=0):
+    n, m, c, _ = shape
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(n, m, c, generator=gen) * 2 + 0.5).to(device, dtype)
+    dy = torch.randn(n, m, c, generator=gen).to(device, dtype)
+    scale = (1.0 + 0.3 * torch.randn(c, generator=gen)).to(device)
+    bias = (0.3 * torch.randn(c, generator=gen)).to(device)
+    return x, dy, scale, bias
+
+
+def _assert_close(got, want, tol):
+    """Each output within ``tol`` of the largest magnitude of the twin's."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = max(1e-6, w.abs().max().item())
+        assert (g - w).abs().max().item() <= tol * scale
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", STAT_SHAPES)
 def test_sums_match_twins(cuda, shape, dtype):
-    """f32 sums: relative 1e-5 (fp32 inputs) / 1e-4 (bf16 inputs) of the
-    sum of magnitudes."""
-    gen = torch.Generator().manual_seed(0)
-    x = torch.randn(shape, generator=gen).to(cuda, dtype)
-    dy = torch.randn(shape, generator=gen).to(cuda, dtype)
+    """group_stats and group_grad_coeffs against their twins: statistics
+    within 1e-5 (fp32 inputs) / 1e-4 (bf16) of the largest magnitude,
+    backward coefficients and parameter gradients within 1e-4 / 1e-3 (sums
+    of products over N*M rows, in another order); two launches each."""
+    x, dy, scale, bias = _stat_inputs(shape, dtype, cuda)
+    g = shape[3]
     tol = 1e-5 if dtype == torch.float32 else 1e-4
-    xf, dyf = x.float(), dy.float()
-    pairs = [(kernels.channel_sums(x), kernels.channel_sums_plain(x),
-              (xf.abs().sum(1), (xf * xf).sum(1))),
-             (kernels.pair_sums(dy, x), kernels.pair_sums_plain(dy, x),
-              (dyf.abs().sum(1), (dyf * xf).abs().sum(1)))]
-    for got, want, mags in pairs:
-        for g, w, mag in zip(got, want, mags):
-            assert ((g - w).abs() <= tol * mag + 1e-6).all()
+    kernels.reset_launch_counts()
+    got = kernels.group_stats(x, scale, bias, g, 1e-6)
+    want = kernels.group_stats_plain(x, scale, bias, g, 1e-6)
+    torch.cuda.synchronize()
+    _assert_close(got, want, tol)
+    mean, rstd = want[2], want[3]
+    got = kernels.group_grad_coeffs(dy, x, scale, mean, rstd, g)
+    want = kernels.group_grad_coeffs_plain(dy, x, scale, mean, rstd, g)
+    torch.cuda.synchronize()
+    _assert_close(got, want, 10 * tol)
+    assert kernels.launch_counts()["group_stats"] == 2
+    assert kernels.launch_counts()["group_grad_coeffs"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STAT_SHAPES)
+def test_elementwise_match_twins(cuda, shape, dtype):
+    """The apply and dx passes against their twins: one rounding of the
+    output dtype (fp32: 1e-5, bf16: 1e-2 of the largest magnitude)."""
+    x, dy, scale, bias = _stat_inputs(shape, dtype, cuda, seed=1)
+    a, b, mean, rstd = kernels.group_stats_plain(x, scale, bias, shape[3], 1e-6)
+    A, B, D, _, _ = kernels.group_grad_coeffs_plain(dy, x, scale, mean, rstd,
+                                                    shape[3])
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    _assert_close([kernels.affine_apply(x, a, b)],
+                  [kernels.affine_apply_plain(x, a, b)], tol)
+    _assert_close([kernels.affine_dx(dy, x, A, B, D)],
+                  [kernels.affine_dx_plain(dy, x, A, B, D)], tol)
+
+
+@pytest.mark.parametrize("shape", [(3, 25680, 256, 16), (3, 102480, 64, 32),
+                                   (2, 129, 36, 4)])
+def test_statistics_bit_identical_across_calls(cuda, shape):
+    """The partial sums and their combine run in a fixed order (no
+    atomics): two calls on the same input give the same bits."""
+    x, dy, scale, bias = _stat_inputs(shape, torch.bfloat16, cuda, seed=2)
+    g = shape[3]
+    first = kernels.group_stats(x, scale, bias, g, 1e-6)
+    again = kernels.group_stats(x, scale, bias, g, 1e-6)
+    back = kernels.group_grad_coeffs(dy, x, scale, first[2], first[3], g)
+    back2 = kernels.group_grad_coeffs(dy, x, scale, first[2], first[3], g)
+    torch.cuda.synchronize()
+    for a, b in zip(first + back, again + back2):
+        assert torch.equal(a, b)
+
+
+def test_misaligned_operands_take_the_scalar_variant(cuda):
+    """A contiguous view that starts off a 16-byte boundary runs the VEC = 1
+    kernels, with the same results as the twins."""
+    n, m, c, g = 2, 77, 64, 16
+    flat = torch.randn(n * m * c + 1, device=cuda)
+    x = flat[1:].view(n, m, c)
+    assert x.data_ptr() % 16 != 0
+    scale = torch.ones(c, device=cuda)
+    bias = torch.zeros(c, device=cuda)
+    got = kernels.group_stats(x, scale, bias, g, 1e-6)
+    want = kernels.group_stats_plain(x, scale, bias, g, 1e-6)
+    _assert_close(got, want, 1e-5)
+    _assert_close([kernels.affine_apply(x, got[0], got[1])],
+                  [kernels.affine_apply_plain(x, want[0], want[1])], 1e-5)
+
+
+def test_wrappers_capture_in_a_cuda_graph(cuda):
+    """The wrappers launch on PyTorch's current stream and allocate with
+    torch.empty, so a CUDA graph captures them (chip_smoke.py times them
+    so)."""
+    x, dy, scale, bias = _stat_inputs((2, 300, 64, 32), torch.bfloat16, cuda)
+    want = kernels.group_stats(x, scale, bias, 32, 1e-6)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = kernels.group_stats(x, scale, bias, 32, 1e-6)
+        y = kernels.affine_apply(x, got[0], got[1])
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(y, kernels.affine_apply(x, want[0], want[1]))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -79,12 +172,26 @@ def test_module_forward_backward_fp32(cuda, shape):
 
 
 def test_wrappers_reject_bad_operands(cuda):
+    """A dtype, a shape or a device the kernels do not take raises."""
     x = torch.zeros(2, 8, 16, device=cuda, dtype=torch.float16)
+    s = torch.ones(16, device=cuda)
     with pytest.raises(TypeError):
-        kernels.channel_sums(x)
+        kernels.group_stats(x, s, s, 4, 1e-6)
     y = torch.zeros(2, 16, 8, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError):
-        kernels.channel_sums(y)
+        kernels.group_stats(y, s, s, 4, 1e-6)  # not contiguous
+    x = torch.zeros(2, 8, 16, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.group_stats(x.view(16, 16), s, s, 4, 1e-6)  # not [N, M, C]
+    with pytest.raises(ValueError):
+        kernels.group_stats(x, s.cpu(), s, 4, 1e-6)  # mixed devices
+    with pytest.raises(TypeError):
+        kernels.group_stats(x, s.double(), s, 4, 1e-6)
+    mean = torch.zeros(2, 4, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.group_grad_coeffs(x, x, s, mean[:, :2], mean, 4)
+    with pytest.raises(ValueError):
+        kernels.affine_apply(x, mean, mean)  # coefficients not [N, C]
 
 
 # (N, max_out, IoU threshold): the detection path's, a ragged N, several

@@ -94,21 +94,35 @@ def test_kernel_formulation_matches_pallas_interpret(shape, groups):
 
 def test_kernel_twins_match_direct_sums():
     """The wrappers take their plain twins on CPU tensors, and the twins
-    compute the per-channel sums the Pallas kernels define."""
+    compute the group statistics and coefficients from the per-channel sums
+    the Pallas kernels define (fp32, tolerance 1e-5)."""
     rng = np.random.RandomState(4)
-    x = torch.from_numpy(rng.randn(2, 37, 24).astype(np.float32))
-    dy = torch.from_numpy(rng.randn(2, 37, 24).astype(np.float32))
-    s, sq = kernels.channel_sums(x)
-    np.testing.assert_allclose(s.numpy(), x.numpy().sum(1), rtol=1e-5,
+    n, m, c, g = 2, 37, 24, 4
+    x = torch.from_numpy(rng.randn(n, m, c).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(n, m, c).astype(np.float32))
+    scale = torch.from_numpy(rng.randn(c).astype(np.float32))
+    bias = torch.from_numpy(rng.randn(c).astype(np.float32))
+    a, b, mean, rstd = kernels.group_stats(x, scale, bias, g, 1e-6)
+    xg = x.numpy().reshape(n, m, g, c // g)
+    np.testing.assert_allclose(mean.numpy(), xg.mean((1, 3)), rtol=1e-5,
                                atol=1e-5)
-    np.testing.assert_allclose(sq.numpy(), (x.numpy() ** 2).sum(1),
+    np.testing.assert_allclose(rstd.numpy(), 1 / np.sqrt(xg.var((1, 3)) + 1e-6),
                                rtol=1e-5, atol=1e-5)
-    s1, s2 = kernels.pair_sums(dy, x)
-    np.testing.assert_allclose(s2.numpy(), (dy.numpy() * x.numpy()).sum(1),
+    np.testing.assert_allclose(
+        a.numpy(), np.repeat(rstd.numpy(), c // g, 1) * scale.numpy(),
+        rtol=1e-5, atol=1e-5)
+    A, B, D, dgamma, dbeta = kernels.group_grad_coeffs(dy, x, scale, mean,
+                                                       rstd, g)
+    np.testing.assert_allclose(dbeta.numpy(), dy.numpy().sum((0, 1)),
                                rtol=1e-5, atol=1e-5)
-    a = torch.from_numpy(rng.randn(2, 24).astype(np.float32))
-    y = kernels.affine_apply(x.to(torch.bfloat16), a, a)
+    xhat = (x.numpy() * a.numpy()[:, None] + b.numpy()[:, None]
+            - bias.numpy()) / scale.numpy()
+    np.testing.assert_allclose(dgamma.numpy(), (dy.numpy() * xhat).sum((0, 1)),
+                               rtol=1e-4, atol=1e-4)
+    y = kernels.affine_apply(x.to(torch.bfloat16), a, b)
     assert y.dtype == torch.bfloat16
+    dx = kernels.affine_dx(dy, x, A, B, D)
+    assert dx.shape == x.shape
     assert kernels.launch_counts() == {k: 0 for k in kernels.WRAPPERS}
 
 
