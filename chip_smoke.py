@@ -13,11 +13,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      Mask R-CNN backbone's GroupNorm-32 shapes (C = 64 at 102480 rows to
      C = 2048 at 405 rows) and at edge shapes; greedy NMS (K3) at the
      detection path's (N = 512, max_out = 1), the greedy RPN's (4336, 512), the
-     kernel's largest N = 16384, a ragged N, an all-invalid input and exact
-     score ties, where idx and keep must be identical. With times of the
-     kernel, the twin and, where one exists, a single PyTorch call computing
-     the same function (GroupNorm: device time from CUDA graphs over inputs
-     three times the L2 cache, and the eager call beside it);
+     kernel's largest N = 16384, a ragged N, an all-invalid input, exact
+     score ties, -0.0/+0.0 ties, NaN coordinates and IoUs exactly at the
+     threshold, where idx and keep must be identical on the route the rule
+     picks and on each route forced. With times of the kernel, the twin
+     and, where one exists, a single PyTorch call computing the same
+     function (device time from CUDA graphs over rotating inputs,
+     GroupNorm's three times the L2 cache, and the eager call beside it;
+     K3 at (512, 1) and (4336, 512), beside the parent checkout's K3 when
+     --parent-root names one, and an empty launch);
   4. DeepLab main path: e-OSVOS-50-OnA one-shot evaluation (bench.py's
      configuration) with a full-width resnet50 os16 frozen-BN DeepLabV3+ in
      bf16 at 480x854, seeded random weights: a 16-frame warm-up sequence,
@@ -37,10 +41,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --parent-root DIR
+
+also builds DIR's e_osvos_torch/csrc/nms.cu (an older checkout, unpacked
+with ``git archive`` into a directory .gitignore lists; its C entry point
+``nms_greedy``) and times it beside K3 in turns, on the same inputs.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import itertools
 import json
 import math
@@ -402,7 +414,8 @@ def time_gn_composites(peaks):
 NMS_CASES = [("det_512x1", 512, 1, 0.5), ("det_512x4", 512, 4, 0.5),
              ("rpn_4336x512", 4336, 512, 0.7), ("max_16384x64", 16384, 64, 0.5),
              ("ragged_777", 777, 100, 0.5), ("all_invalid", 512, 8, 0.5),
-             ("ties", 2000, 300, 0.5)]
+             ("ties", 2000, 300, 0.5), ("signed_zero_ties", 2000, 300, 0.5),
+             ("nan_boxes", 4336, 512, 0.7), ("iou_ties", 2000, 300, 0.5)]
 
 
 def nms_inputs(name: str, n: int, gen: torch.Generator):
@@ -417,6 +430,19 @@ def nms_inputs(name: str, n: int, gen: torch.Generator):
         valid[:] = False
     if name == "ties":  # 16 distinct scores: many exact ties
         scores = torch.floor(scores * 16) / 16
+    if name == "signed_zero_ties":  # -0.0 ties +0.0: the lowest index wins
+        scores = torch.where(scores < 0.5, 0.0, -0.0)
+        scores[::97] = 0.5
+    if name == "iou_ties":  # an integer grid: IoUs exactly at 1/2
+        xy = torch.randint(0, 12, (n, 2), generator=gen).float()
+        boxes = torch.cat([xy, xy + torch.randint(1, 7, (n, 2),
+                                                  generator=gen)], 1)
+    if name == "nan_boxes":  # a NaN coordinate makes every IoU with it 0
+        hit = torch.rand(n, generator=gen) < 0.05
+        boxes[hit, torch.randint(0, 4, (int(hit.sum()),), generator=gen)] = (
+            torch.nan)
+        boxes[7] = torch.nan
+        scores[7] = 2.0
     return boxes.cuda(), scores.cuda(), valid.cuda()
 
 
@@ -433,49 +459,110 @@ def nms_bound(peaks, n: int, max_out: int, kept: int):
             "bytes" if byts / bw >= ops / f32_peak else "operations")
 
 
-def check_nms_kernel(peaks):
-    """K3 against its plain twin at every NMS case: idx and keep must be
-    identical. Returns the record at the detection path's (512, 1), with the
-    greedy RPN's (4336, 512) times logged beside it."""
+def load_parent_nms(root: str):
+    """K3 of an older checkout at ``root``: its csrc/nms.cu built with the
+    port's nvcc flags into build/, bound through its one entry point
+    ``nms_greedy``. Returns ``fn(boxes, scores, valid, thr, max_out) ->
+    (idx, keep)`` for one image on the current stream."""
+    from e_osvos_torch.ops import cuda_build, cuda_nms
+
+    src = os.path.join(os.path.abspath(root), "e_osvos_torch", "csrc", "nms.cu")
+    out = cuda_build.BUILD_DIR / "parent_nms.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS,
+                    *cuda_nms.NVCC_EXTRA, "-o", str(out), src],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nms_greedy.argtypes = [p, p, p, i, i, ctypes.c_float, i, p, p, p]
+    lib.nms_greedy.restype = i
+
+    def run(boxes, scores, valid, thr, max_out):
+        idx = torch.empty(max_out, dtype=torch.int32, device=boxes.device)
+        keep = torch.empty(max_out, dtype=torch.bool, device=boxes.device)
+        err = lib.nms_greedy(boxes.data_ptr(), scores.data_ptr(),
+                             valid.data_ptr(), 1, scores.shape[-1], float(thr),
+                             max_out, idx.data_ptr(), keep.data_ptr(),
+                             cuda_build.stream())
+        cuda_build.raise_on(err, "parent greedy_nms")
+        return idx, keep
+
+    log(f"parent K3 built from {src}")
+    return run
+
+
+def check_nms_kernel(peaks, parent=None):
+    """K3 against its plain twin at every NMS case, on the route the rule
+    picks and on each route forced: idx and keep must be identical. Returns
+    the record at the detection path's (512, 1), with the greedy RPN's
+    (4336, 512) logged beside it."""
     from e_osvos_torch.ops import cuda_nms
 
     gen = torch.Generator(device="cpu").manual_seed(2)
-    timed = {}
     for name, n, max_out, thr in NMS_CASES:
         boxes, scores, valid = nms_inputs(name, n, gen)
-        idx, keep = cuda_nms.greedy_nms(boxes, scores, valid, thr, max_out)
-        idx_p, keep_p = cuda_nms.greedy_nms_plain(boxes, scores, valid, thr,
-                                                  max_out)
-        torch.cuda.synchronize()
-        same = torch.equal(idx, idx_p) and torch.equal(keep, keep_p)
+        want = cuda_nms.greedy_nms_plain(boxes, scores, valid, thr, max_out)
+        route = cuda_nms.nms_route(n, max_out)
+        same = {}
+        for r in (None, "s", "l"):
+            got = cuda_nms.greedy_nms(boxes, scores, valid, thr, max_out,
+                                      route=r)
+            torch.cuda.synchronize()
+            same[r or "rule"] = all(map(torch.equal, got, want))
+        if parent is not None and name in ("det_512x1", "rpn_4336x512"):
+            got = parent(boxes, scores, valid, thr, max_out)
+            same["parent"] = all(map(torch.equal, got, want))
+        idx, keep = want
         kept = int(keep.sum())
-        log(f"  nms {name}: N={n} max_out={max_out} kept={kept} "
-            f"identical={same}")
-        if not same:
-            raise AssertionError(f"K3 disagrees with its twin at {name}")
+        log(f"  nms {name}: N={n} max_out={max_out} kept={kept} route "
+            f"{route}; identical " + json.dumps(same))
+        if not all(same.values()):
+            raise AssertionError(f"K3 disagrees with its twin at {name}: "
+                                 f"{same}")
         if name == "all_invalid" and (kept or bool((idx != -1).any())):
             raise AssertionError("K3 kept a box of an all-invalid input")
-        if name in ("det_512x1", "rpn_4336x512"):
-            t_plain_1 = cuda_time_ms(lambda: cuda_nms.greedy_nms_plain(
-                boxes, scores, valid, thr, max_out), iters=5, warmup=1)
-            t_kern_1 = cuda_time_ms(lambda: cuda_nms.greedy_nms(
-                boxes, scores, valid, thr, max_out))
-            t_kern_2 = cuda_time_ms(lambda: cuda_nms.greedy_nms(
-                boxes, scores, valid, thr, max_out))
-            t_plain_2 = cuda_time_ms(lambda: cuda_nms.greedy_nms_plain(
-                boxes, scores, valid, thr, max_out), iters=5, warmup=1)
-            bound, bound_by = nms_bound(peaks, n, max_out, kept)
-            timed[name] = {"ms": min(t_kern_1, t_kern_2),
-                           "plain_ms": min(t_plain_1, t_plain_2),
-                           "bound_ms": bound, "bound_by": bound_by,
-                           "library_ms": None, "max_abs_err": 0.0}
-            log(f"  nms {name}: kernel {timed[name]['ms']:.4f} ms, plain "
-                f"{timed[name]['plain_ms']:.4f} ms, bound {bound:.6f} ms "
-                f"({bound_by}; the floor is max_out dependent block-wide "
-                f"reductions, i.e. latency)")
+    timed = {name: time_nms(peaks, name, n, max_out, thr, parent)
+             for name, n, max_out, thr in NMS_CASES
+             if name in ("det_512x1", "rpn_4336x512")}
+    empty = graph_time_ms(cuda_nms.empty_launch)
     # no single PyTorch call computes greedy NMS (torchvision is absent)
     log("nms times " + json.dumps(timed))
+    log(f"nms empty launch (one block of 512 threads, graph replay): "
+        f"{empty:.6f} ms")
     return timed["det_512x1"]
+
+
+def time_nms(peaks, name: str, n: int, max_out: int, thr: float, parent):
+    """K3's times at one case over 8 input sets in turn: device time from
+    CUDA graphs (the parent's K3 and K3 in turns: parent, K3, K3, parent),
+    the eager call (host launch included), and the twin's eager time."""
+    from e_osvos_torch.ops import cuda_nms
+
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    sets = [nms_inputs(name, n, gen) for _ in range(8)]
+    kern = rotating(lambda b, s, v: cuda_nms.greedy_nms(b, s, v, thr, max_out),
+                    sets)
+    old = parent and rotating(lambda b, s, v: parent(b, s, v, thr, max_out),
+                              sets)
+    t_old_1 = graph_time_ms(old) if old else None
+    t_kern = min(graph_time_ms(kern), graph_time_ms(kern))
+    t_old = min(t_old_1, graph_time_ms(old)) if old else None
+    t_eager = cuda_time_ms(kern)
+    plain = rotating(lambda b, s, v: cuda_nms.greedy_nms_plain(
+        b, s, v, thr, max_out), sets)
+    t_plain = min(cuda_time_ms(plain, iters=5, warmup=1),
+                  cuda_time_ms(plain, iters=5, warmup=1))
+    kept = sum(int(cuda_nms.greedy_nms(*st, thr, max_out)[1].sum())
+               for st in sets) / len(sets)
+    bound, bound_by = nms_bound(peaks, n, max_out, kept)
+    rec = {"ms": t_kern, "plain_ms": t_plain, "bound_ms": bound,
+           "bound_by": bound_by, "library_ms": None, "max_abs_err": 0.0,
+           "eager_ms": t_eager, "parent_ms": t_old, "route": cuda_nms.nms_route(n, max_out), "kept": kept}
+    log(f"  nms {name}: route {rec['route']} device {t_kern:.6f} ms (parent "
+        f"{'not measured' if t_old is None else f'{t_old:.6f}'}), eager "
+        f"{t_eager:.6f} ms, plain {t_plain:.4f} ms, bound {bound:.6f} ms "
+        f"({bound_by})")
+    return rec
 
 
 # ------------------------------------------------------------ main path
@@ -601,7 +688,7 @@ def run_main_path():
     dt = time.perf_counter() - t0
     counts = {**K.launch_counts(), **cuda_nms.launch_counts()}
     want = {**expected_launches(cfg, MAIN_T, n_gn, K.LAUNCHES_PER_CALL),
-            "greedy_nms": 0}
+            "greedy_nms": 0, "greedy_nms_s": 0, "greedy_nms_l": 0}
     log(f"timed sequence ({MAIN_T} frames at {H}x{W}): {dt:.3f} s, "
         f"{MAIN_T / dt:.4f} fps; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -668,7 +755,8 @@ def expected_detection_launches(cfg, T: int, n_gn: int, per_call):
     detection per frame): every GroupNorm of the backbone calls the forward
     wrappers once per training step and once per inferred frame (the padded
     tail included), the backward wrappers once per training step; K3 runs
-    once per inferred frame (the training forward's RPN takes Fast NMS)."""
+    once per inferred frame at (N = 512, max_out = 1), on route S (the
+    training forward's RPN takes Fast NMS)."""
     step = cfg.online_adapt_step
     windows = -(-(T - 1) // step)
     steps = cfg.num_epochs + (windows - 1) * cfg.online_adapt_epochs
@@ -676,7 +764,7 @@ def expected_detection_launches(cfg, T: int, n_gn: int, per_call):
     calls = {"group_stats": steps + frames, "affine_apply": steps + frames,
              "group_grad_coeffs": steps, "affine_dx": steps}
     want = {k: v * n_gn * per_call[k] for k, v in calls.items()}
-    want["greedy_nms"] = frames
+    want.update(greedy_nms=frames, greedy_nms_s=frames, greedy_nms_l=0)
     return want
 
 
@@ -867,6 +955,10 @@ def build_kernels():
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-root", default=None,
+                    help="an older checkout whose K3 is timed beside this one")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -888,7 +980,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     records = check_gn_kernels(peaks)
-    records["greedy_nms"] = check_nms_kernel(peaks)
+    parent = load_parent_nms(args.parent_root) if args.parent_root else None
+    records["greedy_nms"] = check_nms_kernel(peaks, parent)
     log(f"kernel checks: {time.perf_counter() - t0:.2f} s")
 
     phases = (("DeepLab main path", run_main_path),
@@ -900,7 +993,8 @@ def main() -> int:
         t0 = time.perf_counter()
         counts = phase()
         for k, v in (counts or {}).items():
-            launches[k] += v
+            if k in launches:  # the per-route K3 counts are checked per path
+                launches[k] += v
         log(f"{label} phase: {time.perf_counter() - t0:.2f} s")
 
     kernels = []

@@ -214,12 +214,15 @@ def _nms_inputs(n, seed, ties=False):
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("n,max_out,thr", NMS_SHAPES)
 def test_nms_matches_twin(cuda, n, max_out, thr, ties):
-    """K3's idx and keep identical to the twin's on the same card tensors;
-    one launch per call."""
+    """K3's idx and keep identical to the twin's on the same card tensors,
+    on the route ``nms_route`` picks; one call counted, on that route."""
     boxes, scores, valid = (t.to(cuda) for t in _nms_inputs(n, n, ties))
     cuda_nms.reset_launch_counts()
     idx, keep = cuda_nms.greedy_nms(boxes, scores, valid, thr, max_out)
-    assert cuda_nms.launch_counts() == {"greedy_nms": 1}
+    route = cuda_nms.nms_route(n, max_out)
+    assert cuda_nms.launch_counts() == {
+        "greedy_nms": 1, "greedy_nms_s": int(route == "s"),
+        "greedy_nms_l": int(route == "l")}
     want_i, want_k = cuda_nms.greedy_nms_plain(boxes, scores, valid, thr,
                                                max_out)
     torch.cuda.synchronize()
@@ -228,19 +231,123 @@ def test_nms_matches_twin(cuda, n, max_out, thr, ties):
 
 
 def test_nms_batch_and_edge_inputs(cuda):
-    """A batch of images (grid = B), an all-invalid image, -inf scores and
-    max_out past the alive boxes: -1 / False padding as the twin gives."""
+    """A batch of images (one block an image), an all-invalid image, -inf
+    scores and max_out past the alive boxes, on both routes: -1 / False
+    padding as the twin gives."""
     boxes, scores, valid = _nms_inputs(300, 1)
     scores[::5] = -torch.inf
     b = torch.stack([boxes, boxes + 3.0, boxes])
     s = torch.stack([scores, scores.flip(0), scores])
     v = torch.stack([valid, valid, torch.zeros_like(valid)])
     args = [t.to(cuda).contiguous() for t in (b, s, v)]
-    idx, keep = cuda_nms.greedy_nms(*args, 0.5, 400)
     want_i, want_k = cuda_nms.greedy_nms_plain(*args, 0.5, 400)
+    for route in cuda_nms.ROUTES:
+        idx, keep = cuda_nms.greedy_nms(*args, 0.5, 400, route=route)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, want_i) and torch.equal(keep, want_k), route
+        assert (idx[2] == -1).all() and not keep[2].any()
+
+
+def _route_edges():
+    """(N, max_out) on both sides of the route rule's crossover, at the
+    detection path's N and the greedy RPN's."""
+    out = []
+    for n in (512, 4336):
+        last_s = max(m for m in range(1, 513) if cuda_nms.nms_route(n, m) == "s")
+        out += [(n, last_s), (n, last_s + 1)]
+    return out
+
+
+@pytest.mark.parametrize("route", ["s", "l"])
+@pytest.mark.parametrize("n,max_out", [(512, 1), (512, 4), (777, 100),
+                                       (2000, 300), (4336, 512), (16384, 64),
+                                       (1, 3), (65, 70)])
+def test_nms_routes_match_twin(cuda, n, max_out, route):
+    """Each route, forced, at NMS_SHAPES' N and the edges (one box, one
+    box past a chunk), with exact score ties: identical to the twin; one
+    call counted, on that route."""
+    boxes, scores, valid = (t.to(cuda) for t in _nms_inputs(n, n + 7, True))
+    cuda_nms.reset_launch_counts()
+    idx, keep = cuda_nms.greedy_nms(boxes, scores, valid, 0.5, max_out,
+                                    route=route)
+    assert cuda_nms.launch_counts() == {
+        "greedy_nms": 1, "greedy_nms_s": int(route == "s"),
+        "greedy_nms_l": int(route == "l")}
+    want_i, want_k = cuda_nms.greedy_nms_plain(boxes, scores, valid, 0.5,
+                                               max_out)
     torch.cuda.synchronize()
     assert torch.equal(idx, want_i) and torch.equal(keep, want_k)
-    assert (idx[2] == -1).all() and not keep[2].any()
+
+
+def test_nms_crossover_edges_match_twin(cuda):
+    """Both routes on both sides of the crossover: identical to the twin,
+    and the default call takes the route the rule names."""
+    for n, max_out in _route_edges():
+        boxes, scores, valid = (t.to(cuda) for t in _nms_inputs(n, max_out))
+        want_i, want_k = cuda_nms.greedy_nms_plain(boxes, scores, valid, 0.6,
+                                                   max_out)
+        for route in (None, "s", "l"):
+            cuda_nms.reset_launch_counts()
+            idx, keep = cuda_nms.greedy_nms(boxes, scores, valid, 0.6,
+                                            max_out, route=route)
+            taken = route or cuda_nms.nms_route(n, max_out)
+            assert cuda_nms.launch_counts()[f"greedy_nms_{taken}"] == 1
+            torch.cuda.synchronize()
+            assert torch.equal(idx, want_i) and torch.equal(keep, want_k)
+
+
+def _edge_scores_and_boxes(kind, n, seed):
+    boxes, scores, valid = _nms_inputs(n, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    pick = torch.randperm(n, generator=gen)
+    if kind == "signed_zero":  # -0.0 ties +0.0: the lowest index wins
+        scores = torch.where(torch.rand(n, generator=gen) < 0.5, 0.0, -0.0)
+        scores[pick[:5]] = 0.5
+    elif kind == "plus_inf":
+        scores[pick[:20]] = torch.inf
+        scores[pick[20:30]] = -torch.inf
+    elif kind == "nan_boxes":
+        boxes[pick[:25], torch.randint(0, 4, (25,), generator=gen)] = torch.nan
+        boxes[pick[25]] = torch.nan
+        scores[pick[25]] = 2.0
+    return boxes, scores, valid
+
+
+@pytest.mark.parametrize("route", ["s", "l"])
+@pytest.mark.parametrize("kind", ["signed_zero", "plus_inf", "nan_boxes"])
+@pytest.mark.parametrize("n,max_out", [(512, 8), (4336, 512)])
+def test_nms_edge_values_match_twin(cuda, kind, n, max_out, route):
+    """-0.0/+0.0 score ties, +inf and -inf scores, NaN coordinates: both
+    routes identical to the twin."""
+    args = [t.to(cuda) for t in _edge_scores_and_boxes(kind, n, n)]
+    idx, keep = cuda_nms.greedy_nms(*args, 0.5, max_out, route=route)
+    want_i, want_k = cuda_nms.greedy_nms_plain(*args, 0.5, max_out)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, want_i) and torch.equal(keep, want_k)
+    if kind == "signed_zero":  # the ±0 picks come in index order
+        picked = idx[keep].long()
+        zero = picked[args[1][picked] == 0]
+        assert len(zero) > 1 and (zero[1:] > zero[:-1]).all()
+
+
+@pytest.mark.parametrize("route", ["s", "l"])
+@pytest.mark.parametrize("thr", [0.5, 1 / 3, 2 / 3, 0.25])
+def test_nms_iou_at_the_threshold_matches_twin(cuda, thr, route):
+    """Boxes on an integer grid give many IoUs exactly at, or a few ulps
+    from, the threshold (1/2, 1/3, 2/3, 1/4): the kernels' quick quotient
+    must hand those to the IEEE division and decide as the twin does."""
+    gen = torch.Generator().manual_seed(int(thr * 1000))
+    n = 700
+    xy = torch.randint(0, 12, (n, 2), generator=gen).float()
+    wh = torch.randint(1, 7, (n, 2), generator=gen).float()
+    boxes = torch.cat([xy, xy + wh], 1).to(cuda)
+    scores = torch.rand(n, generator=gen).to(cuda)
+    valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    idx, keep = cuda_nms.greedy_nms(boxes, scores, valid, thr, 300,
+                                    route=route)
+    want_i, want_k = cuda_nms.greedy_nms_plain(boxes, scores, valid, thr, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, want_i) and torch.equal(keep, want_k)
 
 
 def test_nms_rejects_bad_operands(cuda):
@@ -252,3 +359,8 @@ def test_nms_rejects_bad_operands(cuda):
     big = [t.to(cuda) for t in _nms_inputs(16385, 3)]
     with pytest.raises(ValueError):
         cuda_nms.greedy_nms(*big, 0.5, 4)
+    flat = torch.zeros(64 * 4 + 1, device=cuda)
+    with pytest.raises(ValueError):  # off the 16-byte boundary
+        cuda_nms.greedy_nms(flat[1:].view(64, 4), scores, valid, 0.5, 4)
+    with pytest.raises(ValueError):
+        cuda_nms.greedy_nms(boxes, scores, valid, 0.5, 4, route="x")
