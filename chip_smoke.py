@@ -21,7 +21,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      function (device time from CUDA graphs over rotating inputs,
      GroupNorm's three times the L2 cache, and the eager call beside it;
      K3 at (512, 1) and (4336, 512), beside the parent checkout's K3 when
-     --parent-root names one, and an empty launch);
+     --parent-root names one, and an empty launch from torch.cuda);
   4. DeepLab main path: e-OSVOS-50-OnA one-shot evaluation (bench.py's
      configuration) with a full-width resnet50 os16 frozen-BN DeepLabV3+ in
      bf16 at 480x854, seeded random weights: a 16-frame warm-up sequence,
@@ -37,7 +37,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      share of frames with a detection; launch counts as implied;
   7. detection reference: a tiny fp32 Mask R-CNN through the same entry
      point on the card and on the CPU, with the same CPU-drawn random
-     numbers: probabilities within 1e-3, identical NMS picks.
+     numbers: probabilities within 1e-3, identical NMS picks;
+  8. detection main path with the exact greedy RPN: phase 6's configuration
+     with RPNConfig(use_fast_nms=False), the reference's torchvision RPN
+     semantics, so K3 also selects the proposals at (N = 4336, max_out =
+     512), route L, for every image of every training step and every
+     inferred frame; in the warm-up sequence some of those calls are held
+     against the plain twin on their own inputs.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -494,8 +500,8 @@ def load_parent_nms(root: str):
 def check_nms_kernel(peaks, parent=None):
     """K3 against its plain twin at every NMS case, on the route the rule
     picks and on each route forced: idx and keep must be identical. Returns
-    the record at the detection path's (512, 1), with the greedy RPN's
-    (4336, 512) logged beside it."""
+    the records of route S at the detection head's (512, 1) and of route L
+    at the greedy RPN's (4336, 512)."""
     from e_osvos_torch.ops import cuda_nms
 
     gen = torch.Generator(device="cpu").manual_seed(2)
@@ -524,12 +530,13 @@ def check_nms_kernel(peaks, parent=None):
     timed = {name: time_nms(peaks, name, n, max_out, thr, parent)
              for name, n, max_out, thr in NMS_CASES
              if name in ("det_512x1", "rpn_4336x512")}
-    empty = graph_time_ms(cuda_nms.empty_launch)
+    # torch.cuda._sleep(0): one thread that spins for no cycles
+    empty = graph_time_ms(lambda: torch.cuda._sleep(0))
     # no single PyTorch call computes greedy NMS (torchvision is absent)
     log("nms times " + json.dumps(timed))
-    log(f"nms empty launch (one block of 512 threads, graph replay): "
-        f"{empty:.6f} ms")
-    return timed["det_512x1"]
+    log(f"empty launch (torch.cuda._sleep(0), graph replay): {empty:.6f} ms")
+    return {"greedy_nms": timed["det_512x1"],
+            "greedy_nms_l": timed["rpn_4336x512"]}
 
 
 def time_nms(peaks, name: str, n: int, max_out: int, thr: float, parent):
@@ -750,31 +757,42 @@ def check_reference():
 DET_WARMUP_T = 7  # two windows: a fine-tune, a refit, 10 inferred frames
 
 
-def expected_detection_launches(cfg, T: int, n_gn: int, per_call):
+def expected_detection_launches(cfg, T: int, n_gn: int, per_call,
+                                greedy_rpn: bool = False):
     """Launches one detection sequence implies (support frame 0, one
     detection per frame): every GroupNorm of the backbone calls the forward
     wrappers once per training step and once per inferred frame (the padded
     tail included), the backward wrappers once per training step; K3 runs
-    once per inferred frame at (N = 512, max_out = 1), on route S (the
-    training forward's RPN takes Fast NMS)."""
+    once per inferred frame in the detection head at (N = 512, max_out =
+    1), on route S. With the greedy RPN, K3 also selects the proposals of
+    each image at (4336, 512), on route L: ``batch_size`` images a
+    fine-tune step, the support frame and ``min(step, batch_size)`` pseudo
+    frames a refit step, one image an inferred frame."""
     step = cfg.online_adapt_step
     windows = -(-(T - 1) // step)
-    steps = cfg.num_epochs + (windows - 1) * cfg.online_adapt_epochs
+    refit_steps = (windows - 1) * cfg.online_adapt_epochs
+    steps = cfg.num_epochs + refit_steps
     frames = windows * step
     calls = {"group_stats": steps + frames, "affine_apply": steps + frames,
              "group_grad_coeffs": steps, "affine_dx": steps}
     want = {k: v * n_gn * per_call[k] for k, v in calls.items()}
-    want.update(greedy_nms=frames, greedy_nms_s=frames, greedy_nms_l=0)
+    rpn = (cfg.num_epochs * cfg.batch_size
+           + refit_steps * (1 + min(step, cfg.batch_size)) + frames
+           if greedy_rpn else 0)
+    want.update(greedy_nms=frames + rpn, greedy_nms_s=frames,
+                greedy_nms_l=rpn)
     return want
 
 
-def build_detection_path(device="cuda"):
+def build_detection_path(device="cuda", greedy_rpn: bool = False):
     """scripts/bench_detection_ona.py's e-OSVOS-50-OnA configuration on the
     port, with one detection per frame (the single-id VOS mode): full-width
     resnet50 GroupNorm-32 FPN Mask R-CNN in bf16 with seeded random weights,
     neuron-level linear lrs at 1e-4 with a learned init, EXTEND proposal
     augmentation, OnA every 5 frames for 10 steps at min_prop 0.75, and
-    two synthetic 480x854 sequences of 67 frames."""
+    two synthetic 480x854 sequences of 67 frames. ``greedy_rpn`` selects
+    the proposals by exact greedy NMS (the reference's torchvision RPN), not
+    Fast NMS."""
     from e_osvos_torch.data.synthetic import SyntheticVOSIndex
     from e_osvos_torch.engine import (
         DetectionOneShotConfig, DetectionOneShotEvaluator,
@@ -783,7 +801,8 @@ def build_detection_path(device="cuda"):
     from e_osvos_torch.models import MaskRCNN, RoIConfig, RPNConfig
 
     model = MaskRCNN(arch="resnet50", backbone_norm="group",
-                     dtype=torch.bfloat16, rpn=RPNConfig(),
+                     dtype=torch.bfloat16,
+                     rpn=RPNConfig(use_fast_nms=not greedy_rpn),
                      roi=RoIConfig(detections_per_img=1), seed=0,
                      device=device)
     meta_cfg = MetaOptimConfig(lr_hierarchy_level="neuron", init_lr=1e-4,
@@ -799,28 +818,67 @@ def build_detection_path(device="cuda"):
     return model, meta_params, evaluator, index
 
 
-def run_detection_path():
+class CheckedRPNNMS:
+    """Stands in for the RPN's ``batched_nms`` in a warm-up: every
+    ``every``-th call, up to ``most`` of them, its K3 picks are held
+    against the plain twin on the same inputs, moved to the CPU."""
+
+    def __init__(self, every: int = 48, most: int = 5):
+        from e_osvos_torch.ops import nms
+
+        self.batched_nms, self.every, self.most = nms.batched_nms, every, most
+        self.calls, self.checked = 0, []
+
+    def __call__(self, boxes, scores, ids, thr, max_out, valid=None):
+        got = self.batched_nms(boxes, scores, ids, thr, max_out, valid=valid)
+        if self.calls % self.every == 0 and len(self.checked) < self.most:
+            want = self.batched_nms(
+                boxes.cpu(), scores.cpu(), ids.cpu(), thr, max_out,
+                valid=None if valid is None else valid.cpu())
+            same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+            self.checked.append((tuple(boxes.shape), max_out, same))
+        self.calls += 1
+        return got
+
+
+def run_detection_path(greedy_rpn: bool = False):
+    from e_osvos_torch.models import rpn
     from e_osvos_torch.ops import cuda_group_norm as K
     from e_osvos_torch.ops import cuda_nms
     from e_osvos_torch.ops.group_norm import FusedGroupNorm
 
     H, W = MAIN_HW
+    tag = "detection (greedy RPN)" if greedy_rpn else "detection"
     t0 = time.perf_counter()
-    model, meta_params, evaluator, index = build_detection_path()
+    model, meta_params, evaluator, index = build_detection_path(
+        greedy_rpn=greedy_rpn)
     n_gn = sum(isinstance(mod, FusedGroupNorm) and mod.use_kernel
                for mod in model.modules())
     staged = stage_frames(index)
     torch.cuda.synchronize()
-    log(f"detection set-up (model, meta-params, staged frames): "
+    log(f"{tag} set-up (model, meta-params, staged frames): "
         f"{time.perf_counter() - t0:.3f} s; {n_gn} GroupNorm layers on the "
         f"kernels")
 
     t0 = time.perf_counter()
-    timed_sequence(evaluator, meta_params, index, staged, "seq00",
-                   DET_WARMUP_T, 0, "cuda")
+    checked = CheckedRPNNMS() if greedy_rpn else None
+    if checked:
+        rpn.batched_nms = checked
+    try:
+        timed_sequence(evaluator, meta_params, index, staged, "seq00",
+                       DET_WARMUP_T, 0, "cuda")
+    finally:
+        if checked:
+            rpn.batched_nms = checked.batched_nms
     torch.cuda.synchronize()
-    log(f"detection warm-up sequence ({DET_WARMUP_T} frames): "
+    log(f"{tag} warm-up sequence ({DET_WARMUP_T} frames): "
         f"{time.perf_counter() - t0:.3f} s")
+    if checked:
+        log(f"{tag}: RPN NMS calls held against the twin in the warm-up "
+            f"(boxes shape, max_out, identical): {checked.checked}")
+        if not checked.checked or not all(c[2] for c in checked.checked):
+            raise AssertionError("K3 disagrees with its twin on the greedy "
+                                 "RPN's inputs")
 
     K.reset_launch_counts()
     cuda_nms.reset_launch_counts()
@@ -833,22 +891,22 @@ def run_detection_path():
     dt = time.perf_counter() - t0
     counts = {**K.launch_counts(), **cuda_nms.launch_counts()}
     want = expected_detection_launches(evaluator.cfg, MAIN_T, n_gn,
-                                       K.LAUNCHES_PER_CALL)
-    log(f"detection timed sequence ({MAIN_T} frames at {H}x{W}): {dt:.3f} s, "
+                                       K.LAUNCHES_PER_CALL, greedy_rpn)
+    log(f"{tag} timed sequence ({MAIN_T} frames at {H}x{W}): {dt:.3f} s, "
         f"{MAIN_T / dt:.4f} fps; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log("detection phases (device timeline; fetched = threshold, pack and "
+    log(f"{tag} phases (device timeline; fetched = threshold, pack and "
         "host fetch) " + json.dumps(phases))
-    log("detection launch counts " + json.dumps(counts) + " expected "
+    log(f"{tag} launch counts " + json.dumps(counts) + " expected "
         + json.dumps(want))
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     if tuple(probs.shape) != (MAIN_T, H, W) or masks.shape != (MAIN_T, H, W):
         raise AssertionError(f"output shapes {tuple(probs.shape)}, {masks.shape}")
     if not bool(torch.isfinite(probs).all()):
-        raise AssertionError("non-finite probabilities on the detection path")
+        raise AssertionError(f"non-finite probabilities on the {tag} path")
     detected = (probs[1:] > 0).flatten(1).any(1).float().mean()
-    log(f"detection: share of frames with a non-empty detection "
+    log(f"{tag}: share of frames with a non-empty detection "
         f"{float(detected):.4f}; foreground share of the masks "
         f"{float(masks[1:].mean()):.4f}")
     return counts
@@ -929,11 +987,15 @@ REPLACES = {
     # the elementwise passes XLA fused around the two Pallas kernels
     "affine_apply": "e_osvos_tpu/ops/pallas_group_norm.py:167",
     "affine_dx": "e_osvos_tpu/ops/pallas_group_norm.py:208",
+    # K3's two routes
     "greedy_nms": "e_osvos_tpu/ops/pallas_nms.py:35",
+    "greedy_nms_l": "e_osvos_tpu/ops/pallas_nms.py:35",
 }
 SOURCES = {"group_stats": "group_norm", "group_grad_coeffs": "group_norm",
            "affine_apply": "group_norm", "affine_dx": "group_norm",
-           "greedy_nms": "nms"}
+           "greedy_nms": "nms", "greedy_nms_l": "nms"}
+# the launch count each record reads: K3's records, each route's calls
+COUNTED_AS = {"greedy_nms": "greedy_nms_s"}
 
 
 def build_kernels():
@@ -981,26 +1043,28 @@ def main() -> int:
     t0 = time.perf_counter()
     records = check_gn_kernels(peaks)
     parent = load_parent_nms(args.parent_root) if args.parent_root else None
-    records["greedy_nms"] = check_nms_kernel(peaks, parent)
+    records.update(check_nms_kernel(peaks, parent))
     log(f"kernel checks: {time.perf_counter() - t0:.2f} s")
 
     phases = (("DeepLab main path", run_main_path),
               ("DeepLab reference", check_reference),
               ("detection main path", run_detection_path),
-              ("detection reference", check_detection_reference))
+              ("detection reference", check_detection_reference),
+              ("detection main path, greedy RPN",
+               lambda: run_detection_path(greedy_rpn=True)))
     launches = dict.fromkeys(records, 0)
     for label, phase in phases:
         t0 = time.perf_counter()
-        counts = phase()
-        for k, v in (counts or {}).items():
-            if k in launches:  # the per-route K3 counts are checked per path
-                launches[k] += v
+        counts = phase() or {}
+        for k in launches:
+            launches[k] += counts.get(COUNTED_AS.get(k, k), 0)
         log(f"{label} phase: {time.perf_counter() - t0:.2f} s")
 
     kernels = []
     for kname, rec in records.items():
         kernels.append({
-            "name": kname if kname == "greedy_nms" else f"gn_{kname}",
+            "name": (f"gn_{kname}" if SOURCES[kname] == "group_norm"
+                     else kname),
             "route": "cuda",
             "source": f"e_osvos_torch/csrc/{SOURCES[kname]}.cu",
             "replaces": REPLACES[kname], "launches": launches[kname],

@@ -217,17 +217,15 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
 }
 
-// Raise a kernel's dynamic shared memory limit once to `most`, the largest
-// it is ever launched with; returns the error of a refused setting.
+// Raise a kernel's dynamic shared memory limit to `bytes` where that is
+// above the default; the setting holds for the current device only, so it
+// is made on every such launch. Returns the error of a refused setting.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t most,
-                       bool* done) {
-  if (bytes <= static_cast<size_t>(kDefaultSmem) || *done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(most));
-  if (e == cudaSuccess) *done = true;
-  return e;
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 template <int ITEMS>
@@ -235,10 +233,8 @@ int launch_few(const float4* boxes, const float* scores, const uint8_t* valid,
                int B, int N, int threads, float thresh, int max_out,
                int32_t* idx, uint8_t* keep, cudaStream_t stream) {
   constexpr bool kSmem = ITEMS <= kSmemBoxes / kMaxThreads;
-  static bool smem_raised = false;
   const size_t smem = kSmem ? static_cast<size_t>(N) * sizeof(float4) : 0;
-  cudaError_t e = allow_smem(nms_few_kernel<ITEMS>, smem,
-                             kSmemBoxes * sizeof(float4), &smem_raised);
+  const cudaError_t e = allow_smem(nms_few_kernel<ITEMS>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   nms_few_kernel<ITEMS><<<B, threads, smem, stream>>>(
       boxes, scores, valid, N, thresh, max_out, idx, keep);
@@ -338,8 +334,8 @@ __global__ void __launch_bounds__(kRankBoxes* kRankWarps)
 }
 
 // The upper triangle of T x T tiles, row by row: pair p -> (row r, column
-// c >= r). Row r starts at r*T - r*(r-1)/2. ops/cuda_nms.py::tile_pair is
-// the same map.
+// c >= r). Row r starts at r*T - r*(r-1)/2. The route L tests
+// (tests/test_torch_port_nms_routes.py) check the same map in Python.
 __device__ __forceinline__ void tile_pair(int p, int T, int* r_out,
                                           int* c_out) {
   const double a = 2.0 * T + 1.0;
@@ -503,8 +499,6 @@ __global__ void __launch_bounds__(kScanThreads)
   }
 }
 
-__global__ void empty_kernel() {}
-
 }  // namespace
 
 extern "C" {
@@ -552,10 +546,8 @@ int nms_many(const void* boxes, const void* scores, const void* valid, int B,
   auto* msk = static_cast<uint64_t*>(mask);
   const int W = (N + kTile - 1) / kTile;
 
-  static bool rank_smem_raised = false;
   const size_t rank_smem = static_cast<size_t>((N + 3) & ~3) * sizeof(float);
-  cudaError_t e = allow_smem(nms_rank_kernel, rank_smem,
-                             kMaxBoxes * sizeof(float), &rank_smem_raised);
+  cudaError_t e = allow_smem(nms_rank_kernel, rank_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   nms_rank_kernel<<<dim3((N + kRankBoxes - 1) / kRankBoxes, B),
                     kRankBoxes * kRankWarps, rank_smem, s>>>(
@@ -572,12 +564,6 @@ int nms_many(const void* boxes, const void* scores, const void* valid, int B,
   nms_scan_kernel<<<B, kScanThreads, W * sizeof(unsigned long long), s>>>(
       msk, sid, cnt, N, W, max_out, static_cast<int32_t*>(idx),
       static_cast<uint8_t*>(keep));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// One block of `threads` threads that does nothing: the floor of a launch.
-int nms_empty(int threads, void* stream) {
-  empty_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,16 +17,13 @@ The source note in ``csrc/nms.cu`` gives the kernels' bound and design.
 Given CPU tensors the wrapper computes the plain twin ``greedy_nms_plain``
 (max_out rounds of arg-max with lowest-index ties, one-vs-all IoU, suppress);
 given CUDA tensors it launches the route's kernels or raises.
-``greedy_nms_sorted_plain`` replays route L's algorithm on the CPU, step by
-step as the kernels take it. ``greedy_nms.launches`` counts the wrapper
-calls on the card and ``greedy_nms.route_calls`` the calls of each route;
-the twins count nothing.
+``greedy_nms.launches`` counts the wrapper calls on the card and
+``greedy_nms.route_calls`` the calls of each route; the twin counts nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -54,8 +51,6 @@ def _load() -> ctypes.CDLL:
         lib.nms_few.restype = i
         lib.nms_many.argtypes = [p, p, p, i, i, f, i, p, p, p, p, p, p, p]
         lib.nms_many.restype = i
-        lib.nms_empty.argtypes = [i, p]
-        lib.nms_empty.restype = i
         _lib = lib
     return _lib
 
@@ -64,26 +59,10 @@ def nms_route(n: int, max_out: int) -> str:
     """The route of one call: ``"s"`` while ``max_out <= max(8, N / 512)``,
     where ``max_out`` rounds in one block beat route L's three launches on
     an H100 (``scripts/torch_nms_routes.py``: route S was faster up to 8-16
-    picks at N = 512..4336 and up to 32 at N = 16384), else ``"l"``."""
+    picks at N = 512..4336 and up to 32 at N = 16384), else ``"l"``. The
+    detection head's calls, (512, 1), take route S; the exact greedy RPN's,
+    (4336, 512), take route L."""
     return "s" if max_out <= max(8, n // 512) else "l"
-
-
-def tile_pair(p: int, tiles: int) -> Tuple[int, int]:
-    """Mask block ``p`` → (row tile, column tile ≥ row tile): the upper
-    triangle of ``tiles x tiles`` row by row, as ``nms_mask_kernel`` maps
-    its ``blockIdx.x``."""
-    a = 2.0 * tiles + 1.0
-    r = int((a - math.sqrt(a * a - 8.0 * p)) * 0.5)
-    r = max(0, min(tiles - 1, r))
-
-    def start(q):
-        return q * tiles - q * (q - 1) // 2
-
-    while r > 0 and start(r) > p:
-        r -= 1
-    while r + 1 < tiles and start(r + 1) <= p:
-        r += 1
-    return r, r + p - start(r)
 
 
 def mask_grid(n: int) -> Tuple[int, int]:
@@ -153,96 +132,6 @@ def greedy_nms_plain(boxes: torch.Tensor, scores: torch.Tensor,
     return idx, keep
 
 
-_BIT = torch.tensor([1 << k if k < 63 else -(1 << 63) for k in range(TILE)],
-                    dtype=torch.int64)
-_WORD = (1 << 64) - 1
-
-
-def score_rank_plain(scores: torch.Tensor, alive: torch.Tensor
-                     ) -> torch.Tensor:
-    """Route L's rank (a): the number of alive boxes that beat each box,
-    ``s_j > s_i`` or ``s_j == s_i`` and ``j < i``; a float comparison, so
-    -0.0 ties with +0.0. Meaningful where ``alive``."""
-    n = scores.shape[-1]
-    s = torch.where(alive, scores, torch.nan)
-    sj, si = s[..., None, :], s[..., :, None]
-    lane = torch.arange(n)
-    before = lane[None, :] < lane[:, None]  # [i, j]: j < i
-    return ((sj > si) | ((sj == si) & before)).sum(-1)
-
-
-def suppression_words(sorted_boxes: torch.Tensor, iou_threshold: float,
-                      n: int) -> torch.Tensor:
-    """Route L's mask (b) over boxes in score order ``[m, 4]``: ``[m,
-    ceil(n / 64)]`` int64 words, bit k of word c of row i set when box
-    ``64*c + k`` comes after box i and ``!(iou(i, j) <= thr)``, the IoU
-    taking box i as the winner."""
-    m = sorted_boxes.shape[0]
-    words, _ = mask_grid(n)
-    kill = ~(iou_one_vs_all(sorted_boxes, sorted_boxes) <= iou_threshold)
-    kill &= torch.ones(m, m, dtype=torch.bool).triu(1)
-    bits = torch.zeros(m, words * TILE, dtype=torch.bool)
-    bits[:, :m] = kill
-    return (bits.view(m, words, TILE).long() * _BIT).sum(-1)
-
-
-def scan_words(words: torch.Tensor, max_out: int) -> list:
-    """Route L's scan (c): the kept positions of the score order, walking it
-    in chunks of 64 with a removed bit-vector, as ``nms_scan_kernel`` does:
-    in a chunk, the live boxes in no conflict with another live box of the
-    chunk are kept at once, the others walked in order."""
-    m = words.shape[0]
-    rows = [[w & _WORD for w in row] for row in words.tolist()]
-    removed = [0] * words.shape[1]
-    kept = []
-    for c in range(-(-m // TILE)):
-        base = c * TILE
-        n = min(TILE, m - base)
-        diag = [rows[base + k][c] for k in range(n)]
-        live = ((1 << n) - 1) & ~removed[c]
-        involved = 0
-        for k in range(n):
-            hit = diag[k] & live if live >> k & 1 else 0
-            involved |= hit | (1 << k if hit else 0)
-        keep, todo = live & ~involved, live & involved
-        while todo:
-            k = (todo & -todo).bit_length() - 1
-            keep |= 1 << k
-            todo &= ~diag[k]
-            todo &= todo - 1
-        chunk = [base + k for k in range(n) if keep >> k & 1]
-        kept += chunk[:max_out - len(kept)]
-        if len(kept) >= max_out:
-            break
-        for p in chunk:
-            for w in range(c + 1, len(removed)):
-                removed[w] |= rows[p][w]
-    return kept
-
-
-def greedy_nms_sorted_plain(boxes: torch.Tensor, scores: torch.Tensor,
-                            valid: torch.Tensor, iou_threshold: float,
-                            max_out: int
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Route L's algorithm on CPU tensors, image by image: rank by
-    counting, the boxes in score order, the suppression words, the chunked
-    scan. The same picks as ``greedy_nms_plain``."""
-    n = scores.shape[-1]
-    lead = scores.shape[:-1]
-    idx = torch.full((math.prod(lead), max_out), -1, dtype=torch.int32)
-    flat = zip(boxes.reshape(-1, n, 4), scores.reshape(-1, n),
-               valid.reshape(-1, n).bool())
-    for img, (bx, sc, va) in enumerate(flat):
-        alive = va & (sc > -torch.inf)
-        order = torch.empty(int(alive.sum()), dtype=torch.int64)
-        order[score_rank_plain(sc, alive)[alive]] = torch.arange(n)[alive]
-        kept = scan_words(suppression_words(bx[order], iou_threshold, n),
-                          max_out)
-        idx[img, :len(kept)] = order[kept].int()
-    idx = idx.view(lead + (max_out,))
-    return idx, idx >= 0
-
-
 def _check(boxes, scores, valid, max_out: int) -> Tuple[int, int]:
     if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
         raise TypeError("boxes and scores must be float32")
@@ -307,13 +196,6 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
 
 greedy_nms.launches = 0
 greedy_nms.route_calls = dict.fromkeys(ROUTES, 0)
-
-
-def empty_launch() -> None:
-    """One launch of an empty one-block kernel of 512 threads on the
-    current stream: the floor under a one-round K3 call."""
-    cuda_build.raise_on(_load().nms_empty(512, cuda_build.stream()),
-                        "nms_empty")
 
 
 def reset_launch_counts() -> None:

@@ -334,8 +334,8 @@ def test_nms_edge_values_match_twin(cuda, kind, n, max_out, route):
 @pytest.mark.parametrize("thr", [0.5, 1 / 3, 2 / 3, 0.25])
 def test_nms_iou_at_the_threshold_matches_twin(cuda, thr, route):
     """Boxes on an integer grid give many IoUs exactly at, or a few ulps
-    from, the threshold (1/2, 1/3, 2/3, 1/4): the kernels' quick quotient
-    must hand those to the IEEE division and decide as the twin does."""
+    from, the threshold (1/2, 1/3, 2/3, 1/4): both routes decide each as
+    the twin does."""
     gen = torch.Generator().manual_seed(int(thr * 1000))
     n = 700
     xy = torch.randint(0, 12, (n, 2), generator=gen).float()

@@ -1,14 +1,16 @@
 """Route L of the greedy NMS kernel (K3) replayed on the CPU, and the pure
 Python geometry of both routes.
 
-``cuda_nms.greedy_nms_sorted_plain`` takes route L's steps (rank by
-counting, the IoU bitmask words of the score order, the chunked scan); its
-picks must equal, index for index, the JAX oracle ``e_osvos_tpu.ops.nms.nms``
+``greedy_nms_sorted_plain`` below takes route L's steps as the kernels in
+``e_osvos_torch/csrc/nms.cu`` take them (rank by counting, the IoU bitmask
+words of the score order, the chunked scan); its picks must equal, index for index, the JAX oracle ``e_osvos_tpu.ops.nms.nms``
 and the Pallas kernel in interpret mode, and so must the twin
 ``greedy_nms_plain``. The cases are every case of
 ``test_torch_port_detection_ops.py`` plus the edges of the score order and
 the IoU: -0.0/+0.0 ties, +inf scores, NaN coordinates, zero-area boxes,
 max_out past the alive boxes, several chunks of 64, and a batch."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,114 @@ from e_osvos_tpu.ops import nms as jnms
 from e_osvos_tpu.ops.pallas_nms import nms_pallas
 from e_osvos_torch.ops import cuda_nms
 from test_torch_port_detection_ops import NMS_CASES, _nms_case, random_boxes
+
+
+# ---- route L, step by step on CPU tensors
+
+_TILE = cuda_nms.TILE
+_BIT = torch.tensor([1 << k if k < 63 else -(1 << 63) for k in range(_TILE)],
+                    dtype=torch.int64)
+_WORD = (1 << 64) - 1
+
+
+def tile_pair(p, tiles):
+    """Mask block ``p`` → (row tile, column tile ≥ row tile): the upper
+    triangle of ``tiles x tiles`` row by row, as ``nms_mask_kernel`` maps
+    its ``blockIdx.x`` (the same arithmetic)."""
+    a = 2.0 * tiles + 1.0
+    r = int((a - math.sqrt(a * a - 8.0 * p)) * 0.5)
+    r = max(0, min(tiles - 1, r))
+
+    def start(q):
+        return q * tiles - q * (q - 1) // 2
+
+    while r > 0 and start(r) > p:
+        r -= 1
+    while r + 1 < tiles and start(r + 1) <= p:
+        r += 1
+    return r, r + p - start(r)
+
+
+def score_rank_plain(scores, alive):
+    """Rank (a): the number of alive boxes that beat each box, ``s_j > s_i``
+    or ``s_j == s_i`` and ``j < i``; a float comparison, so -0.0 ties with
+    +0.0. Meaningful where ``alive``."""
+    n = scores.shape[-1]
+    s = torch.where(alive, scores, torch.nan)
+    sj, si = s[..., None, :], s[..., :, None]
+    lane = torch.arange(n)
+    before = lane[None, :] < lane[:, None]  # [i, j]: j < i
+    return ((sj > si) | ((sj == si) & before)).sum(-1)
+
+
+def suppression_words(sorted_boxes, iou_threshold, n):
+    """Mask (b) over boxes in score order ``[m, 4]``: ``[m, ceil(n / 64)]``
+    int64 words, bit k of word c of row i set when box ``64*c + k`` comes
+    after box i and ``!(iou(i, j) <= thr)``, the IoU taking box i as the
+    winner."""
+    m = sorted_boxes.shape[0]
+    words, _ = cuda_nms.mask_grid(n)
+    kill = ~(cuda_nms.iou_one_vs_all(sorted_boxes, sorted_boxes)
+             <= iou_threshold)
+    kill &= torch.ones(m, m, dtype=torch.bool).triu(1)
+    bits = torch.zeros(m, words * _TILE, dtype=torch.bool)
+    bits[:, :m] = kill
+    return (bits.view(m, words, _TILE).long() * _BIT).sum(-1)
+
+
+def scan_words(words, max_out):
+    """Scan (c): the kept positions of the score order, walking it in
+    chunks of 64 with a removed bit-vector, as ``nms_scan_kernel`` does: in
+    a chunk, the live boxes in no conflict with another live box of the
+    chunk are kept at once, the others walked in order."""
+    m = words.shape[0]
+    rows = [[w & _WORD for w in row] for row in words.tolist()]
+    removed = [0] * words.shape[1]
+    kept = []
+    for c in range(-(-m // _TILE)):
+        base = c * _TILE
+        n = min(_TILE, m - base)
+        diag = [rows[base + k][c] for k in range(n)]
+        live = ((1 << n) - 1) & ~removed[c]
+        involved = 0
+        for k in range(n):
+            hit = diag[k] & live if live >> k & 1 else 0
+            involved |= hit | (1 << k if hit else 0)
+        keep, todo = live & ~involved, live & involved
+        while todo:
+            k = (todo & -todo).bit_length() - 1
+            keep |= 1 << k
+            todo &= ~diag[k]
+            todo &= todo - 1
+        chunk = [base + k for k in range(n) if keep >> k & 1]
+        kept += chunk[:max_out - len(kept)]
+        if len(kept) >= max_out:
+            break
+        for p in chunk:
+            for w in range(c + 1, len(removed)):
+                removed[w] |= rows[p][w]
+    return kept
+
+
+def greedy_nms_sorted_plain(boxes, scores, valid, iou_threshold, max_out):
+    """Route L's algorithm, image by image: rank by counting, the boxes in
+    score order, the suppression words, the chunked scan. The same picks
+    as ``cuda_nms.greedy_nms_plain``."""
+    n = scores.shape[-1]
+    lead = scores.shape[:-1]
+    idx = torch.full((math.prod(lead), max_out), -1, dtype=torch.int32)
+    flat = zip(boxes.reshape(-1, n, 4), scores.reshape(-1, n),
+               valid.reshape(-1, n).bool())
+    for img, (bx, sc, va) in enumerate(flat):
+        alive = va & (sc > -torch.inf)
+        order = torch.empty(int(alive.sum()), dtype=torch.int64)
+        order[score_rank_plain(sc, alive)[alive]] = torch.arange(n)[alive]
+        kept = scan_words(suppression_words(bx[order], iou_threshold, n),
+                          max_out)
+        idx[img, :len(kept)] = order[kept].int()
+    idx = idx.view(lead + (max_out,))
+    return idx, idx >= 0
+
 
 
 def _edge_case(name):
@@ -86,7 +196,7 @@ def test_route_l_replay_matches_jax_and_pallas_interpret(case):
     jb, js, jv = jnp.asarray(bx), jnp.asarray(sc), jnp.asarray(va)
     refs = [jnms.nms(jb, js, thr, max_out, valid=jv),
             nms_pallas(jb, js, thr, max_out, valid=jv, interpret=True)]
-    for fn in (cuda_nms.greedy_nms_sorted_plain, cuda_nms.greedy_nms_plain):
+    for fn in (greedy_nms_sorted_plain, cuda_nms.greedy_nms_plain):
         got_i, got_k = fn(_t(bx), _t(sc), _t(va), thr, max_out)
         assert got_i.dtype == torch.int32 and got_k.dtype == torch.bool
         for want_i, want_k in refs:
@@ -108,8 +218,7 @@ def test_route_l_replay_batches_images():
     sc = np.stack([c[1][:n] for c in cases])
     va = np.stack([c[2][:n] for c in cases])
     va[2] = False
-    got_i, got_k = cuda_nms.greedy_nms_sorted_plain(_t(bx), _t(sc), _t(va),
-                                                    0.4, 45)
+    got_i, got_k = greedy_nms_sorted_plain(_t(bx), _t(sc), _t(va), 0.4, 45)
     assert got_i.shape == got_k.shape == (3, 45)
     for i in range(3):
         want_i, want_k = jnms.nms(jnp.asarray(bx[i]), jnp.asarray(sc[i]), 0.4,
@@ -128,7 +237,7 @@ def test_rank_by_counting_is_the_stable_score_order():
     sc[7:20:3] = np.inf
     va[::7] = False
     alive = _t(va) & (_t(sc) > -torch.inf)
-    rank = cuda_nms.score_rank_plain(_t(sc), alive)
+    rank = score_rank_plain(_t(sc), alive)
     order = sorted(np.flatnonzero(va), key=lambda i: (-float(sc[i]), i))
     assert [int(rank[i]) for i in order] == list(range(len(order)))
 
@@ -138,7 +247,7 @@ def test_suppression_words_hold_one_bit_a_later_box():
     by box i, set only for later boxes; words past the boxes are 0."""
     bx, sc, va, thr, _ = _edge_case("many_chunks")
     sb = _t(bx)[:150]
-    words = cuda_nms.suppression_words(sb, thr, 300)
+    words = suppression_words(sb, thr, 300)
     assert words.shape == (150, 5) and words.dtype == torch.int64
     iou = cuda_nms.iou_one_vs_all(sb, sb)
     for i in (0, 63, 64, 100, 149):
@@ -161,8 +270,7 @@ def test_mask_grid(n, words, blocks):
 def test_tile_pairs_cover_the_upper_triangle_row_by_row(tiles):
     """The mask kernel's block → (row tile, column tile) map visits every
     pair with column ≥ row once, in row-major order."""
-    got = [cuda_nms.tile_pair(p, tiles)
-           for p in range(cuda_nms.mask_grid(tiles * 64)[1])]
+    got = [tile_pair(p, tiles) for p in range(cuda_nms.mask_grid(tiles * 64)[1])]
     assert got == [(r, c) for r in range(tiles) for c in range(r, tiles)]
 
 
@@ -210,3 +318,63 @@ def test_cpu_tensors_take_the_twin_on_either_route():
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert cuda_nms.launch_counts() == {"greedy_nms": 0, "greedy_nms_s": 0,
                                         "greedy_nms_l": 0}
+
+
+@pytest.mark.parametrize("greedy_rpn", [False, True])
+def test_detection_sequence_nms_calls_match_the_smoke_formula(monkeypatch,
+                                                             greedy_rpn):
+    """A tiny detection sequence on the CPU makes exactly the K3 calls, by
+    route, that ``chip_smoke.expected_detection_launches`` counts for the
+    card: one a frame in the detection head on route S, and with the greedy
+    RPN one an image of every forward on route L."""
+    import chip_smoke
+    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
+    from e_osvos_torch.data.transforms import AugmentConfig
+    from e_osvos_torch.engine import (
+        DetectionOneShotConfig, DetectionOneShotEvaluator,
+    )
+    from e_osvos_torch.meta_optim import MetaOptimConfig, init_meta_params
+    from e_osvos_torch.models import MaskRCNN, RoIConfig, RPNConfig
+    from e_osvos_torch.ops import cuda_group_norm
+
+    calls = {"greedy_nms": 0, "greedy_nms_s": 0, "greedy_nms_l": 0}
+    greedy_nms = cuda_nms.greedy_nms
+
+    def counting(boxes, scores, valid, thr, max_out, route=None):
+        calls["greedy_nms"] += 1
+        calls["greedy_nms_" + cuda_nms.nms_route(scores.shape[-1],
+                                                 max_out)] += 1
+        return greedy_nms(boxes, scores, valid, thr, max_out, route)
+
+    monkeypatch.setattr(cuda_nms, "greedy_nms", counting)
+    T = 6
+    index = SyntheticVOSIndex(num_sequences=1, num_frames=T, size=(64, 64),
+                              seed=3)
+    seq = index.sequences["seq00"]
+    cfg = DetectionOneShotConfig(
+        num_epochs=2, batch_size=3, online_adapt_step=2,
+        online_adapt_epochs=2, proposal_aug_mode="EXTEND",
+        augment=AugmentConfig(compute_dtype="float32"))
+    model = MaskRCNN(arch="resnet10", backbone_norm="group4",
+                     rpn=RPNConfig(anchor_sizes=(8, 16, 32, 64, 128),
+                                   pre_nms_top_n=64, post_nms_top_n=32,
+                                   batch_size_per_image=32,
+                                   use_fast_nms=not greedy_rpn),
+                     roi=RoIConfig(batch_size_per_image=16,
+                                   detections_per_img=1), seed=5,
+                     device="cpu")
+    meta_cfg = MetaOptimConfig(init_lr=1e-3, use_log_init_lr=False)
+    ev = DetectionOneShotEvaluator(model, meta_cfg, cfg, device="cpu")
+    frames = torch.from_numpy(np.stack([index.get_image("seq00", t)
+                                        for t in range(T)]))
+    probs = ev._eval_object_group(
+        index, seq, frames, seq.object_groups[0],
+        init_meta_params(meta_cfg, model),
+        torch.Generator().manual_seed(0), None)
+    assert probs.shape == (T, 64, 64)
+    want = chip_smoke.expected_detection_launches(
+        cfg, T, 0, cuda_group_norm.LAUNCHES_PER_CALL, greedy_rpn)
+    assert calls == {k: want[k] for k in calls}
+    # 6 frames; 2 fine-tune steps of 3 images and 4 refit steps of 3
+    assert calls["greedy_nms_s"] == 6
+    assert calls["greedy_nms_l"] == (24 if greedy_rpn else 0)
