@@ -233,9 +233,40 @@ def augment_frame(img: torch.Tensor, label: torch.Tensor, draws: AugmentDraws,
 
 
 def pad_label_to(label: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
-    """255-pad an ``[H, W]`` label map bottom/right to ``hw``."""
-    h, w = label.shape
+    """255-pad an ``[..., H, W]`` label map bottom/right to ``hw``."""
+    h, w = label.shape[-2:]
     th, tw = hw
     if (th, tw) == (h, w):
         return label
     return F.pad(label, (0, tw - w, 0, th - h), value=255)
+
+
+def pad_to(img: torch.Tensor, label: torch.Tensor, size: Tuple[int, int]
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pad ``img [H, W, 3]`` (zeros) and ``label [H, W]`` (255) bottom/right
+    to ``size``; returns ``(img, label, valid)`` with ``valid`` the original
+    pixels."""
+    h, w = img.shape[0], img.shape[1]
+    th, tw = size
+    if h > th or w > tw:
+        raise ValueError(f"frame {h}x{w} larger than canvas {th}x{tw}")
+    valid = F.pad(torch.ones((h, w), dtype=torch.uint8, device=img.device),
+                  (0, tw - w, 0, th - h)).bool()
+    return (F.pad(img, (0, 0, 0, tw - w, 0, th - h)),
+            pad_label_to(label, size), valid)
+
+
+def bucket_hw(h: int, w: int, multiple: int) -> Tuple[int, int]:
+    """``(h, w)`` rounded up to the next multiple: the evaluation-resolution
+    bucket. Scoring still runs on the original geometry."""
+    return (-(-h // multiple) * multiple, -(-w // multiple) * multiple)
+
+
+def pad_frames_to_multiple(frames: torch.Tensor, multiple: int
+                           ) -> torch.Tensor:
+    """Zero-pad a ``[T, H, W, 3]`` frame stack bottom/right to its bucket."""
+    h, w = frames.shape[1], frames.shape[2]
+    hb, wb = bucket_hw(h, w, multiple)
+    if (hb, wb) == (h, w):
+        return frames
+    return F.pad(frames, (0, 0, 0, wb - w, 0, hb - h))

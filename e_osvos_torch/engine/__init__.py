@@ -3,10 +3,18 @@
 from e_osvos_torch.engine.one_shot import (
     OneShotConfig,
     OneShotEvaluator,
+    build_gt_stack,
     build_pseudo_gt,
     fine_tune_on_support,
+    fold_in,
+    merge_objects,
+    one_shot_packed,
+    one_shot_packed_objects,
+    one_shot_packed_objects_ona,
     one_shot_packed_ona,
     propagate_windows,
+    pseudo_ignore_padding,
+    score_merged_device,
     segment_frames,
     stack_windows,
 )
@@ -17,7 +25,9 @@ from e_osvos_torch.engine.one_shot_detection import (
 
 __all__ = [
     "DetectionOneShotConfig", "DetectionOneShotEvaluator",
-    "OneShotConfig", "OneShotEvaluator", "build_pseudo_gt",
-    "fine_tune_on_support", "one_shot_packed_ona", "propagate_windows",
-    "segment_frames", "stack_windows",
+    "OneShotConfig", "OneShotEvaluator", "build_gt_stack", "build_pseudo_gt",
+    "fine_tune_on_support", "fold_in", "merge_objects", "one_shot_packed",
+    "one_shot_packed_objects", "one_shot_packed_objects_ona",
+    "one_shot_packed_ona", "propagate_windows", "pseudo_ignore_padding",
+    "score_merged_device", "segment_frames", "stack_windows",
 ]

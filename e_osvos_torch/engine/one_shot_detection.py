@@ -1,7 +1,10 @@
 """One-shot evaluation of the detection family (Mask R-CNN), port of the
-single-object-group fused path of ``e_osvos_tpu/engine/one_shot_detection.py``.
+per-group fused path of ``e_osvos_tpu/engine/one_shot_detection.py``.
 
-For one object group: reset to the learned init and fine-tune on augmented
+``eval_sequence`` runs a sequence's object groups in turn, group gi on the
+seed ``fold_in(seed, gi)``, then merges and scores them on the device;
+``eval_sequence_init`` tracks with the un-fine-tuned init. For one object
+group: reset to the learned init and fine-tune on augmented
 copies of the support frame (the mask targets are synthesised inside the
 model's forward), then walk the rest of the sequence frame by frame, feeding
 each frame's predicted mask boxes, jittered, to the next frame's RPN as
@@ -25,16 +28,25 @@ xyxy float32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from e_osvos_torch.data import transforms
 from e_osvos_torch.data.datasets import binarize_label
 from e_osvos_torch.engine.one_shot import (
     OneShotConfig,
+    _generator,
+    _merged_to_host,
+    _nanmean,
+    _upload,
     build_pseudo_gt,
+    fold_in,
+    merge_objects,
+    score_merged_device,
     stack_windows,
+    stage_sequence,
 )
 from e_osvos_torch.meta_optim import MetaOptimConfig, MetaParams, fine_tune
 from e_osvos_torch.models.deeplab import functional_apply
@@ -61,9 +73,11 @@ class DetectionOneShotEvaluator:
     """Drives one-shot tracking of object groups with a ``MaskRCNN``.
 
     ``device`` is where frames, labels and draws live: ``cuda`` unless the
-    caller asks for another. ``on_phase(name)``, when given, is called as
-    each phase of an object group ends (``"fine_tune"``, then
-    ``"propagate"``); it never synchronizes the device."""
+    caller asks for another. ``eval_sequence`` and ``eval_sequence_init``
+    draw from CPU generators. ``on_phase(name)``, when given, is called as
+    each phase ends (``"fine_tune"`` and ``"propagate"`` of each object
+    group, then ``"score"`` of a sequence); it never synchronizes the
+    device."""
 
     def __init__(self, model: MaskRCNN, meta_cfg: MetaOptimConfig,
                  cfg: DetectionOneShotConfig, device=None,
@@ -84,6 +98,21 @@ class DetectionOneShotEvaluator:
     def _phase_done(self, name: str) -> None:
         if self.on_phase is not None:
             self.on_phase(name)
+
+    def _support_label(self, index, seq, group, hw) -> torch.Tensor:
+        """The group's {0, 1, 255} label of its support frame on the device,
+        255-padded to ``hw``."""
+        gt = index.get_label(seq.name, group.support_frame)
+        return transforms.pad_label_to(_upload(
+            binarize_label(gt, group.object_ids).astype(np.int32),
+            self.device), hw)
+
+    def _initial_boxes(self, support_label: torch.Tensor):
+        """The support mask's box and validity, one copy per tracked
+        detection: ``[K, 4]``, ``[K]``."""
+        k = self.model.roi.detections_per_img
+        boxes0, valid0 = masks_to_boxes((support_label == 1).float()[None])
+        return boxes0.repeat(k, 1), valid0.repeat(k)
 
     # -- random draws ---------------------------------------------------------
 
@@ -232,10 +261,7 @@ class DetectionOneShotEvaluator:
         sf = group.support_frame
         if support_img is None:
             support_img = frames[sf]
-        gt = index.get_label(seq.name, sf)
-        support_label = transforms.pad_label_to(
-            torch.from_numpy(binarize_label(gt, group.object_ids)).to(
-                self.device, torch.int32), hw)
+        support_label = self._support_label(index, seq, group, hw)
 
         params, _ = self._fine_tune(meta_params, generator, support_img,
                                     support_label, init_params)
@@ -245,14 +271,11 @@ class DetectionOneShotEvaluator:
                             device=self.device)
         probs[sf] = (support_label == 1).float()
         if sf + 1 < T:
-            # the support mask's box, one copy per tracked detection
-            k = self.model.roi.detections_per_img
-            boxes0, valid0 = masks_to_boxes(
-                (support_label == 1).float()[None])
-            boxes, valid = boxes0.repeat(k, 1), valid0.repeat(k)
+            boxes, valid = self._initial_boxes(support_label)
             ona = cfg.online_adapt_step > 0
             step = cfg.online_adapt_step if ona else T - sf - 1
-            windows, r, wn_real = stack_windows(frames[sf + 1:], step)
+            windows, r, wn_real = stack_windows(
+                frames[sf + 1:], step, cfg.ona_window_bucket if ona else 0)
             kk = min(step, cfg.batch_size)
             out = []
             for i in range(windows.shape[0]):
@@ -269,3 +292,85 @@ class DetectionOneShotEvaluator:
             probs[sf + 1:] = torch.cat(out)[:r]
         self._phase_done("propagate")
         return probs
+
+    # -- sequences ----------------------------------------------------------
+
+    def eval_sequence(self, index, seq_name: str, meta_params: MetaParams,
+                      seed: int, init_params=None) -> Dict[str, Any]:
+        """Fine-tune and track every object group of one sequence in turn,
+        group gi on the seed ``fold_in(seed, gi)``, then merge and score.
+        Returns the merged uint8 labels ``[T, H, W]`` on the host, the
+        probabilities ``[O, T, H, W]`` as a device tensor, and the J/F
+        means per object and over objects."""
+        seq = index.sequences[seq_name]
+        frames, support, (T, h0, w0) = stage_sequence(
+            index, seq_name, self.device, self.cfg.pad_multiple)
+        obj_probs = [
+            self._eval_object_group(
+                index, seq, frames, g, meta_params,
+                _generator(fold_in(seed, gi)), init_params,
+                orig_hw=(h0, w0), support_img=support[g.support_frame])
+            for gi, g in enumerate(seq.object_groups)]
+        res = self._score(index, seq_name, seq,
+                          torch.stack(obj_probs)[..., :h0, :w0])
+        self._phase_done("score")
+        return res
+
+    def eval_sequence_init(self, index, seq_name: str,
+                           meta_params: MetaParams, init_params=None
+                           ) -> Dict[str, Any]:
+        """init_J of the detection path: the un-fine-tuned init tracks the
+        sequence with the box-carry proposal prior, with no fine-tune and
+        no refit, in windows of ``online_adapt_step`` frames (a ragged tail,
+        the rest in one window without OnA). Group gi's draws come from the
+        seed ``fold_in(0, gi)``."""
+        cfg = self.cfg
+        seq = index.sequences[seq_name]
+        frames, _, (T, h0, w0) = stage_sequence(index, seq_name, self.device,
+                                                cfg.pad_multiple)
+        hw = tuple(frames.shape[1:3])
+        params = (init_params if init_params is not None
+                  else meta_params.model_init)
+        if params is None:
+            raise ValueError("eval_sequence_init needs init_params when the "
+                             "meta-parameters have no learned init")
+        step = cfg.online_adapt_step if cfg.online_adapt_step > 0 else T
+        obj_probs = []
+        for gi, group in enumerate(seq.object_groups):
+            sf = group.support_frame
+            label = self._support_label(index, seq, group, hw)
+            boxes, valid = self._initial_boxes(label)
+            probs = torch.zeros((T,) + hw, dtype=torch.float32,
+                                device=self.device)
+            probs[sf] = (label == 1).float()
+            generator = _generator(fold_in(0, gi))
+            for start in range(sf + 1, T, step):
+                end = min(start + step, T)
+                jitter_u = self.sample_draws(generator, "frames", end - start,
+                                             hw)
+                w_probs, _, _, boxes, valid = self._segment_window(
+                    params, frames[start:end], boxes, valid, jitter_u)
+                probs[start:end] = w_probs
+            obj_probs.append(probs)
+        res = self._score(index, seq_name, seq,
+                          torch.stack(obj_probs)[..., :h0, :w0])
+        return {"seq": seq_name, "init_J_mean": res["J_mean"],
+                "init_F_mean": res["F_mean"]}
+
+    def _score(self, index, seq_name: str, seq, probs: torch.Tensor
+               ) -> Dict[str, Any]:
+        """Merge and score ``probs [O, T, H, W]`` with two fetches: the
+        ``[O, T]`` J/F arrays and the packed merged planes. ``probs`` stays
+        a device tensor in the result; fetching it is the caller's
+        choice."""
+        merged = merge_objects(probs, self.cfg.threshold)
+        j_means, f_means, _ = score_merged_device(index, seq_name, seq, merged)
+        return {
+            "seq": seq_name,
+            "merged": _merged_to_host(merged, len(seq.object_groups)),
+            "probs": probs,
+            "J_per_object": j_means,
+            "F_per_object": f_means,
+            "J_mean": _nanmean(j_means),
+            "F_mean": _nanmean(f_means),
+        }

@@ -98,7 +98,7 @@ def test_one_shot_slice_matches_jax():
                               seed=2)
     seq = index.sequences["seq00"]
     frames_t = torch.from_numpy(frames)
-    ev = OneShotEvaluator(apply, meta_cfg, cfg, device="cpu")
+    ev = OneShotEvaluator(apply, meta_cfg, cfg, device="cpu", fused_ona=True)
     probs = ev._eval_object_group(index, seq, frames_t, seq.object_groups[0],
                                   meta, torch.Generator().manual_seed(0),
                                   None)
@@ -149,7 +149,7 @@ def test_packed_ona_equals_evaluator_masks():
     cfg = OneShotConfig(**CFG_KW)  # default augmentation ranges
     phases = []
     ev = OneShotEvaluator(apply, meta_cfg, cfg, device="cpu",
-                          on_phase=phases.append)
+                          on_phase=phases.append, fused_ona=True)
     probs = ev._eval_object_group(index, seq, frames, seq.object_groups[0],
                                   meta, torch.Generator().manual_seed(8), None)
     assert phases == ["fine_tune", "propagate"]
