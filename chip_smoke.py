@@ -127,6 +127,9 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # The Mask R-CNN backbone's GroupNorm-32 at 480x854: the stem at the
 # fine-tune's batch 3 (2 channels a group), layer4 at batch 3, layer3 in a
 # window inference (batch 1), layer2 in a refit (batch 4)
+# meta-training at 480x480: decoder at C2 (120x120) and ASPP at C5 (30x30)
+GN_META_SHAPES = [(3, 120 * 120, GN_C, 16), (1, 120 * 120, 48, 16),
+                  (1, 30 * 30, GN_C, 16)]
 GN_BACKBONE_SHAPES = [(3, 240 * 427, 64, 32), (3, 15 * 27, 2048, 32),
                       (1, 30 * 54, 1024, 32), (4, 60 * 107, 512, 32)]
 
@@ -157,10 +160,11 @@ def check_gn_kernels(peaks):
         t = torch.randn(*shape, generator=gen) * scale + shift
         return t.to(dev, dtype)
 
-    # (N, M, C, groups): DeepLab batches, the Mask R-CNN backbone, then the
-    # edge shapes (C = 36 is not a multiple of 8: the scalar variant)
+    # (N, M, C, groups): DeepLab batches, the meta-training decoder at
+    # 480x480 (support batch 3 or 1) and ASPP, the Mask R-CNN backbone, then
+    # the edge shapes (C = 36 is not a multiple of 8: the scalar variant)
     shapes = [(3, GN_M, GN_C, 16), (4, GN_M, GN_C, 16), (5, GN_M, GN_C, 16),
-              *GN_BACKBONE_SHAPES,
+              *GN_META_SHAPES, *GN_BACKBONE_SHAPES,
               (3, GN_M, 48, 16), (3, 1, GN_C, 16), (2, 1000, GN_C, 16),
               (1, 777, 48, 16), (1, 30 * 54, GN_C, 16), (2, 1000, 36, 4)]
     # Tolerances. The statistics are f32 sums over bf16 inputs, taken in
@@ -608,6 +612,20 @@ def expected_launches(cfg, T: int, n_gn: int, per_call):
     return {k: v * n_gn * per_call[k] for k, v in calls.items()}
 
 
+def expected_meta_launches(step_cfg, tasks: int, n_gn: int, per_call):
+    """GroupNorm kernel launches one meta step implies: each task runs
+    ``num_epochs`` inner forwards and backwards and one query forward and
+    backward per truncation segment; each of the ``n_gn`` GroupNorms calls
+    the forward wrappers once per forward and the backward wrappers once
+    per backward, and a wrapper call makes ``per_call[wrapper]``
+    launches."""
+    segments = step_cfg.num_epochs // step_cfg.bptt_epochs
+    passes = tasks * (step_cfg.num_epochs + segments)
+    calls = {"group_stats": passes, "affine_apply": passes,
+             "group_grad_coeffs": passes, "affine_dx": passes}
+    return {k: v * n_gn * per_call[k] for k, v in calls.items()}
+
+
 def build_main_path(device="cuda"):
     """bench.py's e-OSVOS-50-OnA configuration on the port: full-width
     resnet50 os16 frozen-BN DeepLabV3+ in bf16 with seeded random weights,
@@ -988,6 +1006,348 @@ def check_eval_reference():
         raise AssertionError("eval_stream differs from eval_sequence")
 
 
+# ------------------------------------------------------- meta-training
+
+META_HW = (480, 480)  # scripts/bench_meta_step.py:51-54
+META_TASKS = 4
+META_TIMED = 3  # timed meta steps a mode, after one warm-up
+
+
+def meta_step_configs():
+    """scripts/bench_meta_step.py's two modes: the per-task augmentation
+    with a support batch of 1 (configs/meta.yaml's default) and the
+    per-step batch-3 mode (the MetaStepConfig default); 5 inner steps, one
+    truncation segment, dice loss, first-order meta-gradients."""
+    from e_osvos_torch.data.transforms import AugmentConfig
+    from e_osvos_torch.parallel import MetaStepConfig
+
+    return {
+        "per-task batch1": MetaStepConfig(
+            num_epochs=5, bptt_epochs=5, train_batch_size=1,
+            augment=AugmentConfig(), frame_transform_per_task=True),
+        "per-step batch3": MetaStepConfig(
+            num_epochs=5, bptt_epochs=5, train_batch_size=3,
+            augment=AugmentConfig()),
+    }
+
+
+def build_meta_trainer(model, step_cfg, device="cuda", tasks=META_TASKS):
+    """scripts/bench_meta_step.py's trainer on the port: neuron-level linear
+    lrs at 1e-3 with a learned init, ``tasks`` tasks a meta step from 4
+    synthetic 480x480 sequences of 8 frames, one query frame a task."""
+    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
+    from e_osvos_torch.engine import MetaTrainConfig, MetaTrainer
+    from e_osvos_torch.meta_optim import (
+        MetaOptimConfig, MetaTaskset, MetaTasksetConfig,
+    )
+    from e_osvos_torch.models import functional_apply
+    from e_osvos_torch.parallel import OuterOptimConfig
+    from e_osvos_torch.utils import MetricsLogger
+
+    index = SyntheticVOSIndex(num_sequences=4, num_frames=8, size=META_HW)
+    taskset = MetaTaskset([index], MetaTasksetConfig(
+        num_query_frames=1, crop_size=META_HW), seed=0)
+    return MetaTrainer(
+        functional_apply(model), model, taskset,
+        meta_cfg=MetaOptimConfig(lr_hierarchy_level="neuron", init_lr=1e-3,
+                                 learn_model_init=True,
+                                 use_log_init_lr=False),
+        step_cfg=step_cfg, outer_cfg=OuterOptimConfig(),
+        train_cfg=MetaTrainConfig(meta_batch_size=tasks,
+                                  num_meta_iters=1, vis_interval=10_000),
+        logger=MetricsLogger(echo=False), device=device)
+
+
+def _meta_phase_seconds(marks):
+    """CUDA-event marks ``[(phase, event)]`` → per meta step (split at each
+    ``start``) the step's seconds and the seconds of each phase, a phase
+    being the time from the previous mark to its own."""
+    steps, cur = [], None
+    for (_, a), (phase, b) in zip(marks, marks[1:]):
+        if phase == "start":
+            cur = None
+            continue
+        if cur is None:
+            cur = {"step_s": 0.0}
+            steps.append(cur)
+        dt = a.elapsed_time(b) / 1e3
+        cur[f"{phase}_s"] = cur.get(f"{phase}_s", 0.0) + dt
+        cur["step_s"] += dt
+    return steps
+
+
+def run_meta_mode(model, tag, step_cfg, n_gn):
+    """``MetaTrainer.run`` over one warm-up and META_TIMED timed meta steps
+    in one call (the pipelined loop): per step the device seconds from
+    after task sampling to the end of the outer update, split into
+    prepare (upload, draws, per-task augmentation), inner steps, query
+    pass and outer update; host sampling seconds apart. The kernels'
+    launch counts over the run must equal the formula, the meta-loss must
+    be finite, and the learned init, the frozen-BN buffers and the lrs
+    must all move."""
+    from e_osvos_torch.ops import cuda_group_norm as K
+
+    trainer = build_meta_trainer(model, step_cfg)
+    before = [{k: v.clone() for k, v in d.items()}
+              for d in trainer.meta_params]
+    marks, sample_s = [], []
+
+    def mark(phase):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((phase, ev))
+
+    sample = trainer.taskset.sample_batch
+
+    def sample_then_mark(n):
+        t0 = time.perf_counter()
+        batch = sample(n)
+        sample_s.append(time.perf_counter() - t0)
+        mark("start")
+        return batch
+
+    trainer.taskset.sample_batch = sample_then_mark
+    trainer.step.on_phase = mark
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = trainer.run(1 + META_TIMED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = _meta_phase_seconds(marks)
+    if len(steps) != 1 + META_TIMED:
+        raise AssertionError(f"{len(steps)} timed meta steps in {tag}")
+    timed = steps[1:]
+    med = {k: float(np.median([s[k] for s in timed])) for k in timed[0]}
+    log(f"meta-training {tag}: median {med['step_s']:.4f} s a meta step "
+        f"({META_TASKS} tasks x {step_cfg.num_epochs} inner steps, "
+        f"{META_HW[0]}x{META_HW[1]}, device timeline after sampling), "
+        f"steps {[round(s['step_s'], 4) for s in timed]}; warm-up "
+        f"{steps[0]['step_s']:.4f} s; host sampling "
+        f"{[round(s, 4) for s in sample_s]} s; wall {wall:.3f} s for "
+        f"{1 + META_TIMED} steps; peak memory {peak / 2**30:.2f} GiB")
+    log(f"meta-training {tag} phases (median seconds a meta step) "
+        + json.dumps({k: round(v, 4) for k, v in med.items()}))
+    want = {k: v * (1 + META_TIMED) for k, v in expected_meta_launches(
+        step_cfg, META_TASKS, n_gn, K.LAUNCHES_PER_CALL).items()}
+    log(f"meta-training {tag} launch counts " + json.dumps(counts)
+        + " expected " + json.dumps(want))
+    if counts != want:
+        raise AssertionError(f"meta launch counts {counts} != {want}")
+    log(f"meta-training {tag}: meta-loss {out['meta_loss']:.6f}, per task "
+        f"{[round(x, 6) for x in out['per_task_loss']]}")
+    if not np.isfinite([out["meta_loss"], *out["per_task_loss"]]).all():
+        raise AssertionError(f"non-finite meta-loss in {tag}")
+    lrs = set(trainer.meta_params.log_init_lr)
+    groups = {"model_init params": (0, lambda k: k in lrs),
+              "frozen-BN buffers": (0, lambda k: k not in lrs),
+              "lrs": (1, lambda k: True)}
+    moved = {}
+    for name, (i, pick) in groups.items():
+        after = trainer.meta_params[i]
+        keys = [k for k in after if pick(k)]
+        moved[name] = (sum(not torch.equal(before[i][k], after[k])
+                           for k in keys), len(keys))
+    log(f"meta-training {tag}: tensors moved by the outer steps "
+        + json.dumps({k: f"{a}/{b}" for k, (a, b) in moved.items()}))
+    if any(a == 0 or b == 0 for a, b in moved.values()):
+        raise AssertionError(f"meta-parameters did not move: {moved}")
+    return counts, {"median_step_s": med, "peak_bytes": peak}
+
+
+def meta_peak_memory(model, num_epochs: int) -> int:
+    """Peak device memory of one single-task per-step batch-3 meta step
+    with ``num_epochs`` inner steps in one segment."""
+    from e_osvos_torch.data.transforms import AugmentConfig
+    from e_osvos_torch.parallel import MetaStepConfig
+
+    cfg = MetaStepConfig(num_epochs=num_epochs, bptt_epochs=num_epochs,
+                         train_batch_size=3, augment=AugmentConfig())
+    trainer = build_meta_trainer(model, cfg, tasks=1)
+    batch = trainer.taskset.sample_batch(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = trainer.step(trainer.meta_params, trainer.opt_state, batch)
+    float(out.meta_loss)
+    return torch.cuda.max_memory_allocated()
+
+
+def run_meta_training(shared):
+    """Meta-training of the full-width main-path model (resnet50 os16
+    frozen-BN DeepLabV3+ in bf16, seeded random weights) through
+    ``MetaTrainer.run`` in both modes of scripts/bench_meta_step.py, then
+    the peak memory of a meta step with 5 and with 10 inner steps: the
+    first-order meta-graph keeps one f32 gradient sum of the parameters a
+    segment and no activations, whatever the number of steps, so the
+    difference must stay within one f32 copy of the parameters."""
+    from e_osvos_torch.models import DeepLabV3Plus
+    from e_osvos_torch.ops.group_norm import FusedGroupNorm
+
+    t0 = time.perf_counter()
+    model = DeepLabV3Plus(num_classes=1, arch="resnet50",
+                          backbone_norm="frozen_bn", output_stride=16,
+                          dtype=torch.bfloat16, seed=0, device="cuda")
+    n_gn = sum(isinstance(m, FusedGroupNorm) and m.use_kernel
+               for m in model.modules())
+    param_bytes = sum(p.numel() * 4 for p in model.parameters())
+    log(f"meta-training set-up: {time.perf_counter() - t0:.3f} s; {n_gn} "
+        f"GroupNorm layers on the kernels; {param_bytes / 2**20:.1f} MiB of "
+        f"f32 parameters (the gradient sum kept a first-order segment)")
+    total = {}
+    for tag, step_cfg in meta_step_configs().items():
+        counts, result = run_meta_mode(model, tag, step_cfg, n_gn)
+        shared[f"meta {tag}"] = result
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    p5, p10 = meta_peak_memory(model, 5), meta_peak_memory(model, 10)
+    growth = p10 - p5
+    log(f"meta step peak memory (1 task, per-step batch 3): 5 inner steps "
+        f"{p5 / 2**30:.3f} GiB, 10 inner steps {p10 / 2**30:.3f} GiB; "
+        f"growth {growth / 2**20:.1f} MiB for 5 more steps "
+        f"({growth / (5 * param_bytes):.2f} f32 parameter copies a step)")
+    if not growth <= param_bytes:
+        raise AssertionError(f"peak memory grows {growth} bytes over 5 inner "
+                             "steps: activations kept across steps")
+    return total
+
+
+def small_meta_step(device, head_norm="group16", second_order=False,
+                    draws_from=None):
+    """One meta step of 2 tasks on a small fp32 model (resnet10 os16
+    frozen-BN DeepLabV3+, 32x32, 2 inner steps truncated after each, the
+    per-step mode with degenerate augmentation): returns (step, the first
+    task's (loss, grads), the meta-parameters before the step (copies),
+    the step's output)."""
+    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
+    from e_osvos_torch.data.transforms import AugmentConfig
+    from e_osvos_torch.meta_optim import (
+        MetaOptimConfig, MetaTaskset, MetaTasksetConfig, init_meta_params,
+    )
+    from e_osvos_torch.models import DeepLabV3Plus, functional_apply
+    from e_osvos_torch.parallel import (
+        MetaStepConfig, OuterOptimConfig, make_meta_step,
+    )
+
+    model = DeepLabV3Plus(num_classes=1, arch="resnet10",
+                          backbone_norm="frozen_bn", head_norm=head_norm,
+                          output_stride=16, seed=5, device=device)
+    meta_cfg = MetaOptimConfig(init_lr=1e-2, use_log_init_lr=False,
+                               second_order_gradients=second_order)
+    aug = AugmentConfig(scale_min=1.0, scale_max=1.0, rot_deg=0.0,
+                        brightness=0.0, contrast=0.0, saturation=0.0,
+                        flip_prob=0.0, compute_dtype="float32")
+    step = make_meta_step(
+        functional_apply(model), meta_cfg,
+        MetaStepConfig(num_epochs=2, bptt_epochs=1, train_batch_size=2,
+                       augment=aug),
+        OuterOptimConfig(model_init_lr=1e-3, log_init_lr_lr=1e-3), 2,
+        device=device)
+    if draws_from is not None:
+        step.task_draws = lambda seed, q: draws_from.task_draws(
+            seed, q).to(device)
+    tasks = MetaTaskset([SyntheticVOSIndex(num_sequences=2, num_frames=4,
+                                           size=(32, 32), seed=3)],
+                        MetaTasksetConfig(crop_size=(32, 32)), seed=1)
+    batch = tasks.sample_batch(2)
+    meta = init_meta_params(meta_cfg, model)
+    first = step.task_grads(
+        meta, *(torch.from_numpy(np.asarray(getattr(batch, f)[0])).to(device)
+                for f in ("support_img", "support_label", "query_imgs",
+                          "query_labels")), int(batch.seeds[0]))
+    start = [t.clone() for d in meta for t in d.values()]
+    out = step(meta, step.init(meta), batch)
+    return step, first[:2], start, out
+
+
+def _rel_err(got, want):
+    """Largest |got - want| of each tensor pair over the pair's largest
+    |want| (at least 1e-6 of the largest of all); the worst of all."""
+    got = [a.detach().double().cpu() for a in got]
+    want = [b.detach().double().cpu() for b in want]
+    floor = 1e-6 * max(float(b.abs().max()) for b in want)
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), floor)
+               for a, b in zip(got, want))
+
+
+def step_change_excess(got_start, got_new, want_start, want_new,
+                       tol=1e-3):
+    """The outer step's change ``new − start`` held elementwise to a
+    reference's: each entry's |Δ_got − Δ_want| may be ``tol`` of its
+    tensor's largest |Δ_want| plus two float32 ulps of the parameter (the
+    rounding of ``p + Δ`` on each side; many updates are a few ulps).
+    Returns (the largest ratio of difference to limit, the entries over
+    their limit, the entries)."""
+    worst, over, total = 0.0, 0, 0
+    for gs, gn, ws, wn in zip(got_start, got_new, want_start, want_new):
+        gs, gn, ws, wn = (t.detach().cpu() for t in (gs, gn, ws, wn))
+        mag = torch.maximum(ws.abs(), wn.abs()).float()
+        ulp = (torch.nextafter(mag, torch.full_like(mag, math.inf))
+               - mag).double()
+        want = wn.double() - ws.double()
+        diff = ((gn.double() - gs.double()) - want).abs()
+        limit = tol * float(want.abs().max()) + 2 * ulp
+        worst = max(worst, float((diff / limit).max()))
+        over += int((diff > limit).sum())
+        total += diff.numel()
+    return worst, over, total
+
+
+def check_meta_reference():
+    """One meta step of a small fp32 model on the card (the kernels) and on
+    the CPU (their twins) from identical draws: the first task's meta-loss
+    (rtol 1e-4), its meta-gradients within 1e-3 of each tensor's largest
+    magnitude, and the outer step's change of every meta-parameter by
+    ``step_change_excess`` (1e-3 of the tensor's largest change plus two
+    ulps). The same limit must reject the card's step with its change
+    taken as zero (a missing outer update). Then the same with
+    second-order meta-gradients through the plain (_xla) norms; second
+    order through the kernel norms must raise."""
+    tol_loss, tol = 1e-4, 1e-3
+    for label, kw in (("first order", {}),
+                      ("second order, _xla norms",
+                       dict(head_norm="group16_xla", second_order=True))):
+        cpu_step, (c_loss, c_grads), c_start, c_out = small_meta_step(
+            "cpu", **kw)
+        _, (g_loss, g_grads), g_start, g_out = small_meta_step(
+            "cuda", draws_from=cpu_step, **kw)
+        loss_err = abs(float(g_loss) - float(c_loss)) / abs(float(c_loss))
+        grad_err = _rel_err(
+            [g for d in g_grads for g in d.values()],
+            [g for d in c_grads for g in d.values()])
+        c_new = [t for d in c_out.meta_params for t in d.values()]
+        g_new = [t for d in g_out.meta_params for t in d.values()]
+        worst, over, n = step_change_excess(g_start, g_new, c_start, c_new,
+                                            tol)
+        _, noop_over, _ = step_change_excess(g_start, g_start, c_start,
+                                             c_new, tol)
+        log(f"small fp32 meta step ({label}), card vs CPU: meta-loss "
+            f"{float(g_loss):.6f} vs {float(c_loss):.6f} (rel {loss_err:.2e}, "
+            f"tol {tol_loss}); meta-grads rel {grad_err:.2e} of each "
+            f"tensor's largest magnitude (tol {tol}); outer step's change "
+            f"at {worst:.3f} of its limit ({tol} of each tensor's largest "
+            f"change + 2 ulps), {over} of {n} entries over; the card's step "
+            f"taken as no change: {noop_over} of {n} entries over")
+        if not (loss_err <= tol_loss and grad_err <= tol and over == 0):
+            raise AssertionError(f"card and CPU disagree on the meta step "
+                                 f"({label}): {loss_err}, {grad_err}, "
+                                 f"{over} changes over the limit")
+        if noop_over == 0:
+            raise AssertionError(f"the step-change limit ({label}) does not "
+                                 "reject a missing outer update")
+    try:
+        small_meta_step("cuda", second_order=True)
+    except RuntimeError as e:
+        if "one level of differentiation" not in str(e):
+            raise
+        log("second order through the kernel norms raises: " + str(e))
+    else:
+        raise AssertionError("second order through the kernel norms did not "
+                             "raise")
+
+
 # ------------------------------------------------------- detection path
 
 DET_WARMUP_T = 7  # two windows: a fine-tune, a refit, 10 inferred frames
@@ -1314,6 +1674,8 @@ def main() -> int:
               ("DeepLab host window loop", lambda: run_host_loop(shared)),
               ("DeepLab reference", check_reference),
               ("DeepLab evaluation reference", check_eval_reference),
+              ("meta-training", lambda: run_meta_training(shared)),
+              ("meta-training reference", check_meta_reference),
               ("detection main path", run_detection_path),
               ("detection reference", check_detection_reference),
               ("detection main path, greedy RPN",

@@ -1,4 +1,4 @@
-"""Evaluation engine of the PyTorch port."""
+"""Evaluation and meta-training engine of the PyTorch port."""
 
 from e_osvos_torch.engine.one_shot import (
     OneShotConfig,
@@ -22,10 +22,11 @@ from e_osvos_torch.engine.one_shot_detection import (
     DetectionOneShotConfig,
     DetectionOneShotEvaluator,
 )
+from e_osvos_torch.engine.meta_trainer import MetaTrainConfig, MetaTrainer
 
 __all__ = [
     "DetectionOneShotConfig", "DetectionOneShotEvaluator",
-    "OneShotConfig", "OneShotEvaluator", "build_gt_stack", "build_pseudo_gt",
+    "MetaTrainConfig", "MetaTrainer", "OneShotConfig", "OneShotEvaluator", "build_gt_stack", "build_pseudo_gt",
     "fine_tune_on_support", "fold_in", "merge_objects", "one_shot_packed",
     "one_shot_packed_objects", "one_shot_packed_objects_ona",
     "one_shot_packed_ona", "propagate_windows", "pseudo_ignore_padding",

@@ -43,7 +43,8 @@ from e_osvos_torch.meta_optim import MetaOptimConfig, MetaParams, fine_tune
 from e_osvos_torch.ops import losses as loss_ops
 from e_osvos_torch.ops import metrics as metric_ops
 from e_osvos_torch.ops.bits import pack_mask_bits, unpack_mask_bits
-from e_osvos_torch.utils.device import resolve_device
+from e_osvos_torch.utils.device import resolve_device, upload
+from e_osvos_torch.utils.seeds import fold_in
 
 Params = Any
 
@@ -77,25 +78,8 @@ class OneShotConfig:
         default_factory=transforms.AugmentConfig)
 
 
-def fold_in(seed: int, i: int) -> int:
-    """A child seed of ``(seed, i)``, the port's counterpart of
-    ``jax.random.fold_in``: distinct for each ``i`` and stable across runs
-    and devices."""
-    return int(np.random.SeedSequence(seed, spawn_key=(i,))
-               .generate_state(1, np.uint64)[0])
-
-
 def _generator(seed: int) -> torch.Generator:
     return torch.Generator(device="cpu").manual_seed(seed)
-
-
-def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``. To a card it goes from pinned memory
-    without blocking the host, so the upload overlaps queued work."""
-    t = torch.from_numpy(np.ascontiguousarray(array))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 def _loss_on(model_apply, cfg, params, imgs, labels):
@@ -399,7 +383,7 @@ def score_merged_device(index, seq_name: str, seq, merged: torch.Tensor):
     gt_stack, has_gt, ids = build_gt_stack(index, seq_name, seq, T,
                                            merged.shape[1:])
     J, F = metric_ops.sequence_scores(
-        merged, _upload(gt_stack, merged.device), _upload(ids, merged.device))
+        merged, upload(gt_stack, merged.device), upload(ids, merged.device))
     J, F = J.cpu().numpy(), F.cpu().numpy()
     groups = range(len(seq.object_groups))
     if not has_gt.any():
@@ -433,10 +417,10 @@ def stage_sequence(index, seq_name: str, device: torch.device,
     T, h0, w0 = frames_np.shape[:3]
     hw_dev = (transforms.bucket_hw(h0, w0, pad_multiple) if pad_multiple
               else (h0, w0))
-    support = {sf: _upload(_pad_frame_np(frames_np[sf], hw_dev), device)
+    support = {sf: upload(_pad_frame_np(frames_np[sf], hw_dev), device)
                for sf in {g.support_frame
                           for g in index.sequences[seq_name].object_groups}}
-    frames = _upload(frames_np, device)
+    frames = upload(frames_np, device)
     if pad_multiple:
         frames = transforms.pad_frames_to_multiple(frames, pad_multiple)
     return frames, support, (T, h0, w0)
@@ -540,7 +524,7 @@ class OneShotEvaluator:
             gt_bins = np.stack([binarize_label(gt, g.object_ids)
                                 for g in groups])
             labels = transforms.pad_label_to(
-                _upload(gt_bins.astype(np.int32), self.device),
+                upload(gt_bins.astype(np.int32), self.device),
                 tuple(frames.shape[1:3]))
             rest = frames[sf + 1:]
             packed = None
@@ -627,7 +611,7 @@ class OneShotEvaluator:
         if support_img is None:
             support_img = frames[sf]
         gt = index.get_label(seq.name, sf)
-        support_label = transforms.pad_label_to(_upload(
+        support_label = transforms.pad_label_to(upload(
             binarize_label(gt, group.object_ids).astype(np.int32),
             self.device), hw)
 

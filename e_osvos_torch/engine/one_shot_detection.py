@@ -40,7 +40,6 @@ from e_osvos_torch.engine.one_shot import (
     _generator,
     _merged_to_host,
     _nanmean,
-    _upload,
     build_pseudo_gt,
     fold_in,
     merge_objects,
@@ -52,7 +51,7 @@ from e_osvos_torch.meta_optim import MetaOptimConfig, MetaParams, fine_tune
 from e_osvos_torch.models.deeplab import functional_apply
 from e_osvos_torch.models.mask_rcnn import MaskRCNN, TrainDraws
 from e_osvos_torch.ops.boxes import masks_to_boxes
-from e_osvos_torch.utils.device import resolve_device
+from e_osvos_torch.utils.device import resolve_device, upload
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,7 +102,7 @@ class DetectionOneShotEvaluator:
         """The group's {0, 1, 255} label of its support frame on the device,
         255-padded to ``hw``."""
         gt = index.get_label(seq.name, group.support_frame)
-        return transforms.pad_label_to(_upload(
+        return transforms.pad_label_to(upload(
             binarize_label(gt, group.object_ids).astype(np.int32),
             self.device), hw)
 

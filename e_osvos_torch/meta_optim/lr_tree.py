@@ -11,7 +11,7 @@ neuron lr is ``[O, 1, 1, 1]`` (flax keeps that axis last, ``(1, 1, 1, O)``).
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import torch
 
@@ -65,3 +65,38 @@ def clamp_lr_tree(lr_tree: LrDict, use_log: bool = True, max_lr: float = 1.0,
     else:
         lo, hi = (0.0 if allow_zero else math.exp(LOG_LR_MIN)), max_lr
     return {k: v.clamp(lo, hi) for k, v in lr_tree.items()}
+
+
+def mask_lrs_by_path(lrs: LrDict, substrings: Sequence[str],
+                     keep_matching: bool = True, zero_value: float = 0.0
+                     ) -> LrDict:
+    """Set to ``zero_value`` the lrs of every parameter whose name does
+    (``keep_matching=False``) or does not (True) contain one of
+    ``substrings``, case-insensitively: the reference's partial-update
+    switches as lr masks (``only_box_head`` keeps ``box_head``/``roi``;
+    encoder freezing drops the backbone). ``zero_value`` is ``LOG_LR_MIN``
+    for log lrs."""
+    subs = tuple(s.lower() for s in substrings)
+
+    def keep(name: str) -> bool:
+        return any(s in name.lower() for s in subs) == keep_matching
+
+    return {k: v if keep(k) else torch.full_like(v, zero_value)
+            for k, v in lrs.items()}
+
+
+def lr_stats(lr_tree: LrDict, use_log: bool = True) -> Dict[str, torch.Tensor]:
+    """Mean, standard deviation (population), min and max of every
+    materialized lr: the reference's init-lr curves."""
+    flat = torch.cat([v.reshape(-1).float()
+                      for v in materialize_lrs(lr_tree, use_log).values()])
+    return {"mean": flat.mean(), "std": flat.std(correction=0),
+            "min": flat.min(), "max": flat.max()}
+
+
+def lr_per_tensor(lr_tree: LrDict, use_log: bool = True) -> Dict[str, float]:
+    """Mean materialized lr of each parameter, by name: the reference's
+    per-tensor init-lr curves. One host transfer for all of them."""
+    lrs = materialize_lrs(lr_tree, use_log)
+    means = torch.stack([v.float().mean() for v in lrs.values()]).tolist()
+    return dict(zip(lrs, means))

@@ -13,7 +13,9 @@ Port of ``e_osvos_tpu/ops/group_norm.py`` and of the custom VJP in
 backward ``group_grad_coeffs`` (K2 with the backward's algebra, two
 launches) and the ``dx = A·dy + B·x + D`` pass (``ops/cuda_group_norm.py``),
 three launches each with no tensor arithmetic between them. It supports one
-level of reverse-mode differentiation, as the JAX ``custom_vjp`` does.
+level of reverse-mode differentiation, as the JAX ``custom_vjp`` does: its
+backward raises under ``create_graph`` (second-order meta-gradients), where
+a silently first-order result would be wrong.
 
 eps defaults to 1e-6, the flax ``nn.GroupNorm`` default (torch's
 ``nn.GroupNorm`` uses 1e-5).
@@ -26,7 +28,6 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.autograd.function import once_differentiable
 
 from e_osvos_torch.ops import cuda_group_norm as kernels
 
@@ -69,9 +70,16 @@ class GroupNormFunction(torch.autograd.Function):
         ctx.save_for_backward(x, scale, mean, rstd)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy, _dmean, _drstd):
         x, scale, mean, rstd = ctx.saved_tensors
+        # a backward with create_graph=True that would have to differentiate
+        # these kernels again
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (dy, x, scale)):
+            raise RuntimeError(
+                "the GroupNorm kernels support one level of differentiation; "
+                "build the model with the *_xla norms for second-order "
+                "gradients")
         dy = dy.contiguous()
         A, B, D, dgamma, dbeta = kernels.group_grad_coeffs(
             dy, x, scale, mean, rstd, ctx.num_groups)

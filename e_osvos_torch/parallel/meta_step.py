@@ -1,0 +1,322 @@
+"""One meta-training step on one GPU, port of
+``e_osvos_tpu/parallel/meta_step.py``.
+
+The JAX step is one SPMD program: tasks sharded over a mesh, each shard's
+tasks in a ``lax.scan``, gradients reduced by ``psum``, the outer optax
+update fused in. Here the tasks run in turn on the one device: each task's
+meta-gradients (``meta_optim.meta_grads``) are summed, divided by the meta
+batch size, and the outer step (elementwise clip → coupled weight decay →
+RAdam, per group) and the lr clamp update the meta-parameters in place. The
+task axis over several GPUs with ``torch.distributed`` is later work.
+
+Each task's random draws come from device generators seeded from the task's
+seed with ``fold_in``, following the JAX step's keys: inner step e's
+support augmentations from ``fold_in(seed, e)``, the per-task augmentation
+of ``frame_transform_per_task`` from ``fold_in(seed, 0x7A)``. (The dense
+family's query pass draws nothing; the JAX query key ``0x71`` serves the
+detection family.) ``MetaStep.task_draws`` is the one function that draws,
+so a caller can hand in other draws.
+
+The outer RAdam is optax's formula (``optax.radam``: ``r·m̂ / (sqrt(v̂) +
+eps)``, rectified once ``ρ_t >= 5``), written with ``torch._foreach_*`` ops:
+``torch.optim.RAdam`` adds eps before the bias correction and rectifies at
+``ρ_t > 5``, and drifts from optax by about 1e-3 of an update from step 6.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from e_osvos_torch.data import transforms
+from e_osvos_torch.meta_optim import (
+    MetaOptimConfig,
+    MetaParams,
+    clamp_meta_params,
+    meta_grads,
+)
+from e_osvos_torch.ops import losses as loss_ops
+from e_osvos_torch.utils.device import resolve_device, upload
+from e_osvos_torch.utils.seeds import fold_in
+
+TASK_KEY = 0x7A  # per-task augmentation (frame_transform_per_task)
+
+# optax.radam's defaults
+RADAM_B1 = 0.9
+RADAM_B2 = 0.999
+RADAM_EPS = 1e-8
+RADAM_THRESHOLD = 5.0
+
+
+@dataclasses.dataclass(frozen=True)
+class OuterOptimConfig:
+    """Outer (meta) optimizer: RAdam lrs of the two groups, weight decay of
+    the learned init, elementwise gradient clip (None = off). ``lr`` is the
+    configs' lr of further meta-parameters, of which there are none yet."""
+
+    model_init_lr: float = 1e-5
+    log_init_lr_lr: float = 1e-5
+    lr: float = 1e-3
+    model_init_weight_decay: float = 1e-3
+    grad_clip: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MetaStepConfig:
+    """Inner-loop shape of one meta step: ``num_epochs`` inner steps on
+    ``train_batch_size`` support copies, truncated every ``bptt_epochs``.
+
+    ``frame_transform_per_task`` (the reference's
+    ``random_frame_transform_per_task``): one augmentation per task, the
+    support warped once and reused every inner step as a batch of one,
+    queries augmented with the task's flip and colour draws. False: fresh
+    augmentations per copy and inner step, un-augmented queries.
+
+    ``remat`` checkpoints the inner steps of second-order meta-gradients;
+    first order keeps no activations across steps and ignores it."""
+
+    num_epochs: int = 5
+    bptt_epochs: int = 5
+    train_batch_size: int = 3
+    loss_func: str = "dice"
+    normalize_mode: str = "davis"
+    frame_transform_per_task: bool = False
+    remat: bool = True
+    augment: transforms.AugmentConfig = dataclasses.field(
+        default_factory=transforms.AugmentConfig)
+
+
+class OuterRAdam(torch.optim.Optimizer):
+    """optax's ``chain(clip(grad_clip), add_decayed_weights(weight_decay),
+    radam(lr))`` for each param group, over tensors whose ``.grad`` holds
+    the meta-gradient. A group's step count lives in the group, so
+    ``state_dict`` carries it."""
+
+    def __init__(self, groups: List[dict]):
+        super().__init__(groups, dict(lr=1e-3, weight_decay=0.0, clip=None,
+                                      count=0))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OuterRAdam.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["clip"] is not None:
+                grads = torch._foreach_clamp_min(grads, -group["clip"])
+                torch._foreach_clamp_max_(grads, group["clip"])
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params,
+                                           alpha=group["weight_decay"])
+            for p in params:
+                if not self.state[p]:
+                    self.state[p] = {"mu": torch.zeros_like(p),
+                                     "nu": torch.zeros_like(p)}
+            mu = [self.state[p]["mu"] for p in params]
+            nu = [self.state[p]["nu"] for p in params]
+            b1, b2 = RADAM_B1, RADAM_B2
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, grads, alpha=1 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+            group["count"] += 1
+            t = group["count"]
+            mu_hat = torch._foreach_div(mu, 1 - b1 ** t)
+            ro_inf = 2.0 / (1.0 - b2) - 1.0
+            ro = ro_inf - 2 * t * b2 ** t / (1 - b2 ** t)
+            if ro >= RADAM_THRESHOLD:
+                r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                              / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+                denom = torch._foreach_sqrt(torch._foreach_div(nu, 1 - b2 ** t))
+                torch._foreach_add_(denom, RADAM_EPS)
+                updates = torch._foreach_mul(mu_hat, r)
+                torch._foreach_div_(updates, denom)
+            else:
+                updates = mu_hat
+            torch._foreach_mul_(updates, -group["lr"])
+            torch._foreach_add_(params, updates)
+        return None
+
+
+def make_outer_optimizer(cfg: OuterOptimConfig, meta_params: MetaParams
+                         ) -> OuterRAdam:
+    """The per-group outer optimizer: ``model_init`` (the learned init,
+    frozen-BN buffers included) with weight decay, ``log_init_lr`` without;
+    both clipped elementwise when ``cfg.grad_clip`` is set."""
+    groups = []
+    if meta_params.model_init is not None:
+        groups.append({"name": "model_init",
+                       "params": list(meta_params.model_init.values()),
+                       "lr": cfg.model_init_lr,
+                       "weight_decay": cfg.model_init_weight_decay,
+                       "clip": cfg.grad_clip})
+    groups.append({"name": "log_init_lr",
+                   "params": list(meta_params.log_init_lr.values()),
+                   "lr": cfg.log_init_lr_lr, "weight_decay": 0.0,
+                   "clip": cfg.grad_clip})
+    return OuterRAdam(groups)
+
+
+class MetaStepOut(NamedTuple):
+    meta_params: MetaParams
+    opt_state: OuterRAdam
+    meta_loss: torch.Tensor  # scalar mean over the meta batch
+    per_task_loss: torch.Tensor  # [B]
+    train_losses: torch.Tensor  # [B, num_epochs] inner train losses
+
+
+def _task_fns(model_apply: Callable, cfg: MetaStepConfig):
+    """(train_loss_fn, query_loss_fn) of the dense family: train takes
+    ``(support img, label, draws [B])`` and augments on the device; query
+    takes ``(imgs, labels)`` as they are."""
+
+    def loss_on(params, imgs, labels):
+        imgs = transforms.normalize(imgs, cfg.normalize_mode)
+        valid = labels != 255
+        gts = torch.where(valid, labels, 0).float()
+        logits = model_apply(params, imgs)[..., 0]
+        return loss_ops.compute_loss(cfg.loss_func, logits, gts, valid)
+
+    def train_loss_fn(params, batch):
+        img, label, draws = batch
+        imgs, labels = transforms.augment_support_batch(img, label, draws,
+                                                        cfg.augment)
+        return loss_on(params, imgs, labels)
+
+    def query_loss_fn(params, batch):
+        return loss_on(params, *batch)
+
+    return train_loss_fn, query_loss_fn
+
+
+class MetaStep:
+    """One meta step: ``init(meta_params)`` gives the outer optimizer (the
+    counterpart of the JAX step's opt state); calling the step with
+    ``(meta_params, opt_state, task_batch)`` runs the batch's tasks in turn
+    and updates the meta-parameters in place.
+
+    ``on_phase``, when set, is called with the name of each phase as it
+    ends: per task ``prepare`` (upload, draws, per-task augmentation), then
+    per segment ``inner`` and ``query`` (``meta_grads``); ``outer`` after
+    the outer update and the clamp."""
+
+    def __init__(self, model_apply: Callable, meta_cfg: MetaOptimConfig,
+                 step_cfg: MetaStepConfig, outer_cfg: OuterOptimConfig,
+                 meta_batch_size: int, device=None):
+        self.meta_cfg = meta_cfg
+        self.step_cfg = step_cfg
+        self.outer_cfg = outer_cfg
+        self.meta_batch_size = meta_batch_size
+        self.device = resolve_device(device)
+        self.train_loss_fn, self.query_loss_fn = _task_fns(model_apply,
+                                                           step_cfg)
+        self.on_phase: Optional[Callable[[str], None]] = None
+
+    def init(self, meta_params: MetaParams) -> OuterRAdam:
+        return make_outer_optimizer(self.outer_cfg, meta_params)
+
+    def _mark(self, phase: str) -> None:
+        if self.on_phase is not None:
+            self.on_phase(phase)
+
+    def task_draws(self, seed: int, num_queries: int
+                   ) -> transforms.AugmentDraws:
+        """Every random draw of one task, on the device: per inner step e
+        the ``train_batch_size`` support augmentations (fields ``[E, B]``),
+        or with ``frame_transform_per_task`` the task's frame draws (fields
+        ``[1 + num_queries]``, support first)."""
+        cfg = self.step_cfg
+
+        def gen(i):
+            return torch.Generator(device=self.device).manual_seed(
+                fold_in(seed, i))
+
+        if cfg.frame_transform_per_task:
+            return transforms.sample_task_draws(gen(TASK_KEY), cfg.augment,
+                                                1 + num_queries)
+        per_step = [transforms.sample_augment_draws(gen(e), cfg.augment,
+                                                    cfg.train_batch_size)
+                    for e in range(cfg.num_epochs)]
+        return transforms.AugmentDraws(*(
+            None if f[0] is None else torch.stack(f)
+            for f in zip(*per_step)))
+
+    def task_grads(self, meta_params: MetaParams, s_img, s_label, q_imgs,
+                   q_labels, seed: int):
+        """``(loss, grads, train losses)`` of one task on the device."""
+        cfg = self.step_cfg
+        draws = self.task_draws(seed, q_imgs.shape[0])
+        if cfg.frame_transform_per_task:
+            a_img, a_label, aq_imgs, aq_labels = (
+                transforms.augment_task_frames(s_img, s_label, q_imgs,
+                                               q_labels, draws, cfg.augment))
+            train_batches = [(a_img[None], a_label[None])] * cfg.num_epochs
+            inner_fn = self.query_loss_fn
+            query_batch = (aq_imgs, aq_labels)
+        else:
+            train_batches = [(s_img, s_label, draws.select(e))
+                             for e in range(cfg.num_epochs)]
+            inner_fn = self.train_loss_fn
+            query_batch = (q_imgs, q_labels)
+        self._mark("prepare")
+        return meta_grads(self.meta_cfg, inner_fn, self.query_loss_fn,
+                          meta_params, train_batches, query_batch,
+                          bptt_epochs=cfg.bptt_epochs, remat=cfg.remat,
+                          on_phase=self.on_phase)
+
+    def __call__(self, meta_params: MetaParams, opt_state: OuterRAdam,
+                 task_batch) -> MetaStepOut:
+        tensors = [t for d in meta_params if d is not None for t in d.values()]
+        held = [p for g in opt_state.param_groups for p in g["params"]]
+        if len(held) != len(tensors) or any(
+                a is not b for a, b in zip(held, tensors)):
+            raise ValueError("opt_state was not made by init() from these "
+                             "meta_params")
+        b = task_batch.seeds.shape[0]
+        if b != self.meta_batch_size:
+            raise ValueError(f"task batch of {b}, meta_batch_size "
+                             f"{self.meta_batch_size}")
+        dev = self.device
+        s_imgs = upload(task_batch.support_img.astype(np.float32), dev)
+        s_labels = upload(task_batch.support_label.astype(np.int32), dev)
+        q_imgs = upload(task_batch.query_imgs.astype(np.float32), dev)
+        q_labels = upload(task_batch.query_labels.astype(np.int32), dev)
+        loss_sum, grad_sum, per_task, train = None, None, [], []
+        for i in range(b):
+            loss, grads, tr = self.task_grads(
+                meta_params, s_imgs[i], s_labels[i], q_imgs[i], q_labels[i],
+                int(task_batch.seeds[i]))
+            flat = [g for d in grads if d is not None for g in d.values()]
+            if grad_sum is None:
+                loss_sum, grad_sum = loss, flat
+            else:
+                loss_sum = loss_sum + loss
+                torch._foreach_add_(grad_sum, flat)
+            per_task.append(loss)
+            train.append(tr)
+        torch._foreach_mul_(grad_sum, 1.0 / b)
+        for p, g in zip(tensors, grad_sum):
+            p.grad = g
+        opt_state.step()
+        opt_state.zero_grad(set_to_none=True)
+        clamp_meta_params(self.meta_cfg, meta_params)
+        self._mark("outer")
+        return MetaStepOut(meta_params=meta_params, opt_state=opt_state,
+                           meta_loss=loss_sum * (1.0 / b),
+                           per_task_loss=torch.stack(per_task),
+                           train_losses=torch.stack(train))
+
+
+def make_meta_step(model_apply: Callable, meta_cfg: MetaOptimConfig,
+                   step_cfg: MetaStepConfig, outer_cfg: OuterOptimConfig,
+                   meta_batch_size: int, device=None) -> MetaStep:
+    """The meta step on ``device`` (``cuda`` unless asked otherwise)."""
+    return MetaStep(model_apply, meta_cfg, step_cfg, outer_cfg,
+                    meta_batch_size, device=device)

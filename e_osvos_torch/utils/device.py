@@ -1,9 +1,11 @@
-"""Device selection for the port's entry points."""
+"""Device selection and host-to-device upload for the port's entry
+points."""
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -18,3 +20,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``. To a card it goes from pinned memory
+    without blocking the host, so the upload overlaps queued work."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -125,7 +125,9 @@ def test_augment_support_batch_with_jax_draws():
     j_imgs, j_labs = jt.augment_support_batch(key, jnp.asarray(img),
                                               jnp.asarray(label), 4, jcfg)
     draws = [_jax_draws(k, jcfg) for k in jax.random.split(key, 4)]
-    batch = tt.AugmentDraws(*(torch.stack(f) for f in zip(*draws)))
+    # fields the configuration does not draw (translation, blur) are None
+    batch = tt.AugmentDraws(*(None if f[0] is None else torch.stack(f)
+                              for f in zip(*draws)))
     t_imgs, t_labs = tt.augment_support_batch(
         torch.from_numpy(img), torch.from_numpy(label), batch, tcfg)
     np.testing.assert_allclose(t_imgs.numpy(), np.asarray(j_imgs), atol=1e-2)

@@ -40,6 +40,11 @@ def test_port_files_found():
     assert "e_osvos_torch/ops/metrics.py" in names
     assert "e_osvos_torch/data/loader.py" in names
     assert "scripts/torch_ref_spread.py" in names
+    for module in ("meta_optim/tasksets.py", "parallel/meta_step.py",
+                   "parallel/__init__.py", "engine/meta_trainer.py",
+                   "utils/logging.py", "utils/checkpoint.py",
+                   "utils/seeds.py"):
+        assert f"e_osvos_torch/{module}" in names, module
     for source in ("group_norm.cu", "nms.cu"):
         assert (ROOT / "e_osvos_torch" / "csrc" / source).exists()
 

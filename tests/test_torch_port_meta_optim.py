@@ -158,3 +158,80 @@ def test_lr_tree_levels_and_clamp():
     np.testing.assert_allclose(clamped["a"].numpy(), [LOG_LR_MIN, 0.0, 0.0])
     with pytest.raises(ValueError):
         init_lr_tree(params, "layer")
+
+
+def _jax_lr_pair(rng, use_log):
+    """Random neuron lrs for the two-conv net: the JAX tree and the port's
+    dict."""
+    from e_osvos_tpu.meta_optim.lr_tree import init_lr_tree as jinit
+
+    variables = _jax_params(rng)
+    lrs = jax.tree_util.tree_map(
+        lambda l: rng.uniform(-5.0, -1.0, np.shape(l)).astype(np.float32)
+        if use_log else rng.uniform(1e-3, 0.5, np.shape(l)).astype(np.float32),
+        jax.device_get(jinit(variables, "neuron", use_log=use_log)))
+    return lrs, lr_tree_from_jax(lrs)
+
+
+@pytest.mark.parametrize("use_log", [True, False])
+def test_lr_stats_and_per_tensor_match_jax(use_log):
+    """Mean, population std, min and max of the materialized lrs rtol 1e-5;
+    per-tensor means keyed by parameter name (JAX: by '/'-joined path)."""
+    from e_osvos_tpu.meta_optim.lr_tree import lr_per_tensor as j_per
+    from e_osvos_tpu.meta_optim.lr_tree import lr_stats as j_stats
+    from e_osvos_torch.meta_optim import lr_per_tensor, lr_stats
+
+    j_lrs, lrs = _jax_lr_pair(np.random.RandomState(3), use_log)
+    want = j_stats(j_lrs, use_log)
+    got = lr_stats(lrs, use_log)
+    for k in ("mean", "std", "min", "max"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5)
+    j_tensor = j_per(j_lrs, use_log)
+    per = lr_per_tensor(lrs, use_log)
+    assert len(per) == len(j_tensor)
+    for path, v in j_tensor.items():
+        name = ".".join(path.split("/")[1:]).replace("kernel", "weight")
+        np.testing.assert_allclose(per[name], v, rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("keep_matching", [True, False])
+def test_mask_lrs_by_path_matches_jax(keep_matching):
+    from e_osvos_tpu.meta_optim.lr_tree import mask_lrs_by_path as j_mask
+    from e_osvos_torch.meta_optim import mask_lrs_by_path
+
+    j_lrs, lrs = _jax_lr_pair(np.random.RandomState(4), True)
+    want = lr_tree_from_jax(jax.device_get(
+        j_mask(j_lrs, ("HEAD",), keep_matching, zero_value=LOG_LR_MIN)))
+    got = mask_lrs_by_path(lrs, ("HEAD",), keep_matching,
+                           zero_value=LOG_LR_MIN)
+    assert set(got) == set(want)
+    for k in got:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), k)
+    kept = [k for k in got if not (got[k] == LOG_LR_MIN).all()]
+    assert kept == ([k for k in got if k.startswith("head")] if keep_matching
+                    else [k for k in got if k.startswith("conv")])
+
+
+def test_fine_tune_passes_buffers_through():
+    """A learned init that carries buffers (frozen-BN constants, no lr):
+    the fine-tune hands them to the loss unchanged and updates the rest."""
+    rng = np.random.RandomState(5)
+    cfg = MetaOptimConfig(init_lr=0.1, use_log_init_lr=False)
+    sd = state_dict_from_jax(_jax_params(rng))
+    meta = init_meta_params(cfg, sd)
+    shift = torch.full((6,), 0.25)
+    meta = MetaParams({**meta.model_init, "shift": shift}, meta.log_init_lr)
+    seen = []
+
+    def loss(params, batch):
+        seen.append(params["shift"])
+        p = {k: v for k, v in params.items() if k != "shift"}
+        p["conv.bias"] = p["conv.bias"] + params["shift"]
+        return _torch_loss(p, batch)
+
+    img = torch.from_numpy(rng.randn(2, 8, 8, 3).astype(np.float32))
+    label = torch.from_numpy((rng.rand(2, 8, 8) > 0.5).astype(np.float32))
+    params, _ = fine_tune(cfg, loss, meta, [(img, label)] * 2)
+    assert torch.equal(params["shift"], shift)
+    assert all(torch.equal(s, shift) and not s.requires_grad for s in seen)
+    assert not torch.equal(params["conv.bias"], meta.model_init["conv.bias"])

@@ -150,8 +150,10 @@ def test_dice_and_bce_match_jax(use_valid, batch_average):
 
 
 def test_compute_loss_rejects_unported_names():
+    """Every JAX loss name is ported now (tests/test_torch_port_losses.py);
+    a name neither package knows raises."""
     with pytest.raises(ValueError):
-        losses.compute_loss("lovasz_hinge", torch.zeros(1, 2, 2),
+        losses.compute_loss("focal", torch.zeros(1, 2, 2),
                             torch.zeros(1, 2, 2))
 
 
