@@ -50,13 +50,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      (scripts/bench_detection_ona.py's configuration, one detection per
      frame) with a full-width resnet50 GroupNorm-32 FPN Mask R-CNN in bf16
      at 480x854, seeded random weights: a 7-frame warm-up sequence, then
-     one timed 67-frame sequence, with its fps, per-phase times and the
-     share of frames with a detection; launch counts as implied;
+     one timed 67-frame sequence (the fused window loop), with its fps,
+     per-phase times and the share of frames with a detection; launch
+     counts as implied;
  10. detection reference: a tiny fp32 Mask R-CNN through
      ``DetectionOneShotEvaluator.eval_sequence`` on a 2-object sequence on
-     the card and on the CPU, with the same CPU-drawn random numbers:
-     probabilities within 1e-3, identical NMS picks;
- 11. detection main path with the exact greedy RPN: phase 9's configuration
+     the card and on the CPU, with the same CPU-drawn random numbers, in
+     the fused window loop, the host loop and the host loop refitting the
+     box and mask heads alone: probabilities within 1e-3, identical NMS
+     picks; on the card, ``eval_stream`` over two sequences must give
+     ``eval_sequence``'s merged maps;
+ 11. CLI evaluation, DeepLab, on disk: ``build_480p_tree`` (two 67-frame
+     480x854 sequences, 1 and 2 objects) in a temporary directory under
+     build/, fresh meta-parameters saved with the port's
+     ``save_checkpoint``, then ``e_osvos_torch.cli.evaluate.main`` with
+     DAVIS-2017 e-OSVOS-OnA at phase 4's settings, palette PNGs and init_J:
+     two eval_seq records with J and F in [0, 1], one PNG a frame with the
+     sequence's object ids, launch counts of three single-group sequences
+     plus the init_J forwards; each sequence's fps and peak memory beside
+     the card's name and power limit, and the decoder that ran;
+ 12. CLI evaluation, Mask R-CNN, on disk: the same with phase 9's
+     configuration on the 1-object sequence (a split file written into the
+     tree), launch counts of one sequence plus init_J's tracking;
+ 13. detection main path with the exact greedy RPN: phase 9's configuration
      with RPNConfig(use_fast_nms=False), the reference's torchvision RPN
      semantics, so K3 also selects the proposals at (N = 4336, max_out =
      512), route L, for every image of every training step and every
@@ -76,13 +92,17 @@ with ``git archive`` into a directory .gitignore lists; its C entry point
 from __future__ import annotations
 
 import argparse
+import atexit
 import ctypes
+import dataclasses
 import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1385,8 +1405,9 @@ def build_detection_path(device="cuda", greedy_rpn: bool = False):
     port, with one detection per frame (the single-id VOS mode): full-width
     resnet50 GroupNorm-32 FPN Mask R-CNN in bf16 with seeded random weights,
     neuron-level linear lrs at 1e-4 with a learned init, EXTEND proposal
-    augmentation, OnA every 5 frames for 10 steps at min_prop 0.75, and
-    two synthetic 480x854 sequences of 67 frames. ``greedy_rpn`` selects
+    augmentation, OnA every 5 frames for 10 steps at min_prop 0.75 in the
+    fused window loop, and two synthetic 480x854 sequences of 67 frames.
+    ``greedy_rpn`` selects
     the proposals by exact greedy NMS (the reference's torchvision RPN), not
     Fast NMS."""
     from e_osvos_torch.data.synthetic import SyntheticVOSIndex
@@ -1408,7 +1429,8 @@ def build_detection_path(device="cuda", greedy_rpn: bool = False):
                                  online_adapt_step=5, online_adapt_epochs=10,
                                  online_adapt_min_prop=0.75,
                                  proposal_aug_mode="EXTEND")
-    evaluator = DetectionOneShotEvaluator(model, meta_cfg, cfg, device=device)
+    evaluator = DetectionOneShotEvaluator(model, meta_cfg, cfg, device=device,
+                                          fused_ona=True)
     index = SyntheticVOSIndex(num_sequences=2, num_frames=MAIN_T,
                               size=MAIN_HW, num_objects=1, seed=0)
     return model, meta_params, evaluator, index
@@ -1518,29 +1540,25 @@ DET_REF_T = 5
 DET_REF_SEED = 6
 
 
-def detection_reference(device: str, index_seed: int = DET_REF_SEED,
-                        perturb: float = 0.0):
-    """``DetectionOneShotEvaluator.eval_sequence`` of a 2-object 5-frame
-    64x64 synthetic sequence (seed ``index_seed``) on a tiny fp32 Mask
-    R-CNN on ``device``, the random numbers drawn from CPU generators.
+def detection_reference_setup(device: str, perturb: float = 0.0,
+                              fused_ona: bool = True,
+                              only_box_head: bool = False):
+    """The tiny fp32 Mask R-CNN of the detection reference on ``device``,
+    its meta-parameters and its evaluator (the fused window loop unless
+    ``fused_ona`` is False; ``only_box_head`` refits the heads alone).
     ``perturb`` > 0 scales every weight by ``1 ± perturb`` (seeded signs):
-    rounding noise put in on purpose. Returns the result dict (the
-    probabilities on the host) and the detection head's NMS picks frame by
-    frame, on the host."""
-    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
+    rounding noise put in on purpose."""
     from e_osvos_torch.data.transforms import AugmentConfig
     from e_osvos_torch.engine import (
         DetectionOneShotConfig, DetectionOneShotEvaluator,
     )
     from e_osvos_torch.meta_optim import MetaOptimConfig, init_meta_params
     from e_osvos_torch.models import MaskRCNN, RoIConfig, RPNConfig
-    from e_osvos_torch.models import mask_rcnn
 
-    index = SyntheticVOSIndex(num_sequences=1, num_frames=DET_REF_T,
-                              size=(64, 64), num_objects=2, seed=index_seed)
     cfg = DetectionOneShotConfig(
         num_epochs=2, batch_size=3, online_adapt_step=2,
         online_adapt_epochs=2, proposal_aug_mode="EXTEND",
+        ona_only_box_head=only_box_head,
         augment=AugmentConfig(
             scale_min=1.0, scale_max=1.0, rot_deg=0.0, brightness=0.0,
             contrast=0.0, saturation=0.0, flip_prob=0.0,
@@ -1558,7 +1576,27 @@ def detection_reference(device: str, index_seed: int = DET_REF_SEED,
                 sign = torch.randint(0, 2, p.shape, generator=gen) * 2 - 1
                 p.mul_(1 + perturb * sign.to(p.device, p.dtype))
     meta_params = init_meta_params(meta_cfg, model)
-    ev = DetectionOneShotEvaluator(model, meta_cfg, cfg, device=device)
+    ev = DetectionOneShotEvaluator(model, meta_cfg, cfg, device=device,
+                                   fused_ona=fused_ona)
+    return meta_params, ev
+
+
+def detection_reference(device: str, index_seed: int = DET_REF_SEED,
+                        perturb: float = 0.0, fused_ona: bool = True,
+                        only_box_head: bool = False):
+    """``DetectionOneShotEvaluator.eval_sequence`` of a 2-object 5-frame
+    64x64 synthetic sequence (seed ``index_seed``) on the tiny fp32 Mask
+    R-CNN of ``detection_reference_setup`` on ``device``, the random
+    numbers drawn from CPU generators. Returns the result dict (the
+    probabilities on the host) and the detection head's NMS picks frame by
+    frame, on the host."""
+    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
+    from e_osvos_torch.models import mask_rcnn
+
+    index = SyntheticVOSIndex(num_sequences=1, num_frames=DET_REF_T,
+                              size=(64, 64), num_objects=2, seed=index_seed)
+    meta_params, ev = detection_reference_setup(device, perturb, fused_ona,
+                                                only_box_head)
     batched_nms, picks = mask_rcnn.batched_nms, []
 
     def recording_nms(*args, **kwargs):
@@ -1577,26 +1615,231 @@ def detection_reference(device: str, index_seed: int = DET_REF_SEED,
 
 def check_detection_reference():
     """The detection reference on the card and on the CPU, with the same
-    random numbers: probabilities within 1e-3 and the same NMS pick in
-    every frame."""
-    res, picks = {}, {}
-    for device in ("cpu", "cuda"):
-        res[device], picks[device] = detection_reference(device)
-    probs = {d: r["probs"] for d, r in res.items()}
-    if probs["cuda"].shape != (2, DET_REF_T, 64, 64):
-        raise AssertionError(f"probs shape {tuple(probs['cuda'].shape)}")
-    err = (probs["cpu"] - probs["cuda"]).abs().max().item()
-    same = [torch.equal(a, b) for a, b in zip(picks["cpu"], picks["cuda"])]
-    log(f"tiny fp32 detection eval_sequence (2 objects, sequence seed "
-        f"{DET_REF_SEED}), card vs CPU: max |dprob| = {err:.3e} (tol 1e-3); "
-        f"NMS picks of {len(same)} frames identical: {all(same)}; J per "
-        f"object on the card {res['cuda']['J_per_object']}, on the CPU "
-        f"{res['cpu']['J_per_object']}")
-    if not err <= 1e-3:
-        raise AssertionError(f"card and CPU disagree on the detection slice: "
-                             f"{err}")
-    if len(picks["cpu"]) != len(picks["cuda"]) or not all(same) or not same:
-        raise AssertionError("card and CPU picked different detections")
+    random numbers, in the fused window loop, the host loop, and the host
+    loop refitting the box and mask heads alone: probabilities within 1e-3
+    and the same NMS pick in every frame. Then, on the card,
+    ``eval_stream`` over two sequences against ``eval_sequence`` with the
+    seeds ``fold_in(seed, i)`` (the fused loop): identical merged maps."""
+    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
+    from e_osvos_torch.engine import fold_in
+
+    for label, fused, heads in (("fused loop", True, False),
+                                ("host loop", False, False),
+                                ("host loop, only box head", False, True)):
+        res, picks = {}, {}
+        for device in ("cpu", "cuda"):
+            res[device], picks[device] = detection_reference(
+                device, fused_ona=fused, only_box_head=heads)
+        probs = {d: r["probs"] for d, r in res.items()}
+        if probs["cuda"].shape != (2, DET_REF_T, 64, 64):
+            raise AssertionError(f"probs shape {tuple(probs['cuda'].shape)}")
+        err = (probs["cpu"] - probs["cuda"]).abs().max().item()
+        same = [torch.equal(a, b) for a, b in zip(picks["cpu"], picks["cuda"])]
+        log(f"tiny fp32 detection eval_sequence ({label}; 2 objects, sequence "
+            f"seed {DET_REF_SEED}), card vs CPU: max |dprob| = {err:.3e} (tol "
+            f"1e-3); NMS picks of {len(same)} frames identical: {all(same)}; "
+            f"J per object on the card {res['cuda']['J_per_object']}, on the "
+            f"CPU {res['cpu']['J_per_object']}")
+        if not err <= 1e-3:
+            raise AssertionError(f"card and CPU disagree on the detection "
+                                 f"slice ({label}): {err}")
+        if len(picks["cpu"]) != len(picks["cuda"]) or not all(same) or not same:
+            raise AssertionError(f"card and CPU picked different detections "
+                                 f"({label})")
+
+    index = SyntheticVOSIndex(num_sequences=2, num_frames=DET_REF_T,
+                              size=(64, 64), num_objects=2, seed=DET_REF_SEED)
+    meta_params, ev = detection_reference_setup("cuda")
+    names = ["seq00", "seq01"]
+    masks = ev.eval_stream(index, names, meta_params, 5)
+    same = [bool(np.array_equal(masks[name], ev.eval_sequence(
+        index, name, meta_params, fold_in(5, i))["merged"]))
+        for i, name in enumerate(names)]
+    log(f"detection eval_stream over {len(names)} sequences on the card "
+        f"equals eval_sequence(fold_in(seed, i)): {same}")
+    if not all(same):
+        raise AssertionError("detection eval_stream differs from "
+                             "eval_sequence")
+
+
+# ------------------------------------------------- command lines on disk
+
+CLI_SEQS = {"drift": 1, "crossing": 2}  # build_480p_tree's val sequences
+
+
+def disk_tree(shared):
+    """``build_480p_tree`` in a temporary directory under build/ (which
+    .gitignore lists), built once and removed when the script exits."""
+    if "tree" not in shared:
+        from e_osvos_torch.data.synthetic_disk import build_480p_tree
+
+        base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build")
+        os.makedirs(base, exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_disk_", dir=base)
+        atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+        t0 = time.perf_counter()
+        build_480p_tree(os.path.join(tmp, "DAVIS"))
+        log(f"disk tree: build_480p_tree in {time.perf_counter() - t0:.2f} s")
+        shared["tree"] = tmp
+    return shared["tree"]
+
+
+def run_cli(tag: str, argv, out: str, shared):
+    """Save fresh meta-parameters of the configuration's model with the
+    port's ``save_checkpoint``, then run ``cli.evaluate.main`` on them with
+    palette PNGs and init_J. Returns (parsed config, the model's GroupNorm
+    count on the kernels, the logged records, the launch counts)."""
+    from e_osvos_torch import config
+    from e_osvos_torch.cli import evaluate
+    from e_osvos_torch.cli.common import build_parent_model
+    from e_osvos_torch.data import datasets, native
+    from e_osvos_torch.meta_optim import init_meta_params
+    from e_osvos_torch.ops import cuda_group_norm as K
+    from e_osvos_torch.ops import cuda_nms
+    from e_osvos_torch.ops.group_norm import FusedGroupNorm
+    from e_osvos_torch.utils import save_checkpoint
+
+    ckpt = os.path.join(out, "meta.ckpt")
+    argv = argv + [f"meta_optim_model_file={ckpt}", f"save_dir={out}",
+                   f"save_preds={os.path.join(out, 'preds')}",
+                   "eval_init_j=True"]
+    cfg = config.parse_cli(argv)
+    model = build_parent_model(cfg)
+    n_gn = sum(isinstance(m, FusedGroupNorm) and m.use_kernel
+               for m in model.modules())
+    mp = init_meta_params(config.to_meta_optim_config(cfg), model)
+    save_checkpoint(ckpt, {"meta_params": mp._asdict(), "opt_state": {}})
+    del model, mp
+    why = f" (native loader: {native.error})" if native.error else ""
+    log(f"{tag}: decoder {datasets.decoder()}{why}; {n_gn} GroupNorm layers "
+        f"on the kernels; python -m e_osvos_torch.cli.evaluate "
+        + " ".join(argv))
+
+    K.reset_launch_counts()
+    cuda_nms.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = evaluate.main(argv)
+    torch.cuda.synchronize()
+    log(f"{tag}: cli.evaluate.main {time.perf_counter() - t0:.3f} s")
+    return cfg, n_gn, records, {**K.launch_counts(),
+                                **cuda_nms.launch_counts()}
+
+
+def check_cli_output(tag: str, records, out: str, seqs, per_seq_launches,
+                     counts):
+    """The evaluation's records (one eval_seq a sequence, J and F in [0,
+    1]), its palette PNGs (one a frame, object ids of the sequence) and its
+    launch counts against what the configuration implies."""
+    from e_osvos_torch.utils.png import load_indexed_png
+
+    events = [r["event"] for r in records]
+    if events != ["init_eval_seq", "eval_seq"] * len(seqs) + ["eval_total"]:
+        raise AssertionError(f"{tag}: records {events}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    for r in records:
+        if r["event"] != "eval_seq":
+            continue
+        log(f"{tag}: {r['seq']} ({MAIN_T} frames at {MAIN_HW[0]}x"
+            f"{MAIN_HW[1]}, {seqs[r['seq']]} object(s)): {r['fps']:.4f} fps, "
+            f"{r['time_per_frame'] * MAIN_T:.3f} s, peak memory "
+            f"{r['peak_mem_gib']:.2f} GiB, J {r['J_mean']:.4f}, F "
+            f"{r['F_mean']:.4f} on {smi.strip()}")
+        if not all(0.0 <= r[k] <= 1.0 for k in ("J_mean", "F_mean")):
+            raise AssertionError(f"{tag}: J/F out of [0, 1]: {r}")
+    for name, n_obj in seqs.items():
+        d = os.path.join(out, "preds", name)
+        files = sorted(os.listdir(d))
+        if files != [f"{t:05d}.png" for t in range(MAIN_T)]:
+            raise AssertionError(f"{tag}: {len(files)} PNGs for {name}")
+        ids = set()
+        for f in files:
+            label = load_indexed_png(os.path.join(d, f))
+            if label.shape != MAIN_HW:
+                raise AssertionError(f"{tag}: PNG shape {label.shape}")
+            ids |= set(np.unique(label).tolist())
+        log(f"{tag}: {name}: {len(files)} palette PNGs, object ids {ids}")
+        if not ids <= set(range(n_obj + 1)) or n_obj not in ids:
+            raise AssertionError(f"{tag}: ids {ids} in {name}'s PNGs")
+    want = {k: sum(per_seq_launches[name].get(k, 0) for name in seqs)
+            for k in counts}
+    log(f"{tag}: launch counts " + json.dumps(counts) + " expected "
+        + json.dumps(want))
+    if counts != want:
+        raise AssertionError(f"{tag}: launch counts {counts} != {want}")
+
+
+def run_cli_deeplab(shared):
+    """``cli.evaluate.main`` on the disk tree's two val sequences with
+    DAVIS-2017 e-OSVOS-OnA at bench.py's settings (resnet50 os16 frozen-BN
+    backbone, GN-16 head, bf16, 50 steps, OnA every 5 frames for 10 steps at
+    min_prop 0.75, the fused loop without window bucketing), palette PNGs
+    and init_J: K1/K2 launches of three single-group sequences plus one
+    init_J forward of each sequence."""
+    from e_osvos_torch import config
+    from e_osvos_torch.ops import cuda_group_norm as K
+
+    tree = disk_tree(shared)
+    out = os.path.join(tree, "deeplab")
+    argv = ["with", "DAVIS-2017", "e-OSVOS-OnA",
+            f"datasets.val.root={os.path.join(tree, 'DAVIS')}",
+            "num_epochs.eval=50", "eval_online_adapt.min_prop=0.75",
+            "eval_ona_window_bucket=0", "eval_fused_ona=True"]
+    cfg, n_gn, records, counts = run_cli("CLI evaluation, DeepLab", argv,
+                                         out, shared)
+    one = expected_launches(config.to_one_shot_config(cfg), MAIN_T, n_gn,
+                            K.LAUNCHES_PER_CALL)
+    init = {k: n_gn * K.LAUNCHES_PER_CALL[k]
+            for k in ("group_stats", "affine_apply")}
+    per_seq = {name: {k: n * one[k] + init.get(k, 0) for k in one}
+               for name, n in CLI_SEQS.items()}
+    check_cli_output("CLI evaluation, DeepLab", records, out, CLI_SEQS,
+                     per_seq, counts)
+    return counts
+
+
+def run_cli_detection(shared):
+    """``cli.evaluate.main`` with Mask R-CNN at
+    scripts/bench_detection_ona.py's settings (resnet50 GroupNorm-32 FPN,
+    bf16, one detection per frame, the Fast-NMS RPN, lrs at 1e-4, 50 steps,
+    OnA every 5 frames for 10 steps at min_prop 0.75, the fused loop), on
+    ``drift`` alone through a split file written into the tree: the
+    launches of one sequence plus init_J's tracking of the 66 frames after
+    the support frame (one forward and one K3 route S call a frame)."""
+    from e_osvos_torch import config
+    from e_osvos_torch.engine import DetectionOneShotConfig
+    from e_osvos_torch.ops import cuda_group_norm as K
+
+    tree = disk_tree(shared)
+    root = os.path.join(tree, "DAVIS")
+    with open(os.path.join(root, "ImageSets", "2017", "drift.txt"), "w") as f:
+        f.write("drift\n")
+    out = os.path.join(tree, "maskrcnn")
+    argv = ["with", "DAVIS-2017", "e-OSVOS-OnA", f"datasets.val.root={root}",
+            "datasets.val.split=drift", "parent_model.architecture=MaskRCNN",
+            "parent_model.backbone_norm=group",
+            "parent_model.detections_per_img=1",
+            "meta_optim_cfg.init_lr=0.0001", "num_epochs.eval=50",
+            "eval_online_adapt.min_prop=0.75", "eval_ona_window_bucket=0",
+            "eval_fused_ona=True"]
+    cfg, n_gn, records, counts = run_cli("CLI evaluation, Mask R-CNN", argv,
+                                         out, shared)
+    base = config.to_one_shot_config(cfg)
+    det_cfg = DetectionOneShotConfig(**{
+        f.name: getattr(base, f.name) for f in dataclasses.fields(base)})
+    want = expected_detection_launches(det_cfg, MAIN_T, n_gn,
+                                       K.LAUNCHES_PER_CALL)
+    rest = MAIN_T - 1
+    for k in ("group_stats", "affine_apply"):
+        want[k] += rest * n_gn * K.LAUNCHES_PER_CALL[k]
+    for k in ("greedy_nms", "greedy_nms_s"):
+        want[k] += rest
+    check_cli_output("CLI evaluation, Mask R-CNN", records, out,
+                     {"drift": 1}, {"drift": want}, counts)
+    return counts
 
 
 # ------------------------------------------------------------------ main
@@ -1674,10 +1917,14 @@ def main() -> int:
               ("DeepLab host window loop", lambda: run_host_loop(shared)),
               ("DeepLab reference", check_reference),
               ("DeepLab evaluation reference", check_eval_reference),
+              ("CLI evaluation, DeepLab, on disk",
+               lambda: run_cli_deeplab(shared)),
               ("meta-training", lambda: run_meta_training(shared)),
               ("meta-training reference", check_meta_reference),
               ("detection main path", run_detection_path),
               ("detection reference", check_detection_reference),
+              ("CLI evaluation, Mask R-CNN, on disk",
+               lambda: run_cli_detection(shared)),
               ("detection main path, greedy RPN",
                lambda: run_detection_path(greedy_rpn=True)))
     launches = dict.fromkeys(records, 0)

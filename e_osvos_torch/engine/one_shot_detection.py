@@ -1,19 +1,25 @@
-"""One-shot evaluation of the detection family (Mask R-CNN), port of the
-per-group fused path of ``e_osvos_tpu/engine/one_shot_detection.py``.
+"""One-shot evaluation of the detection family (Mask R-CNN), port of
+``e_osvos_tpu/engine/one_shot_detection.py`` with object groups in turn.
 
 ``eval_sequence`` runs a sequence's object groups in turn, group gi on the
 seed ``fold_in(seed, gi)``, then merges and scores them on the device;
-``eval_sequence_init`` tracks with the un-fine-tuned init. For one object
-group: reset to the learned init and fine-tune on augmented
-copies of the support frame (the mask targets are synthesised inside the
-model's forward), then walk the rest of the sequence frame by frame, feeding
-each frame's predicted mask boxes, jittered, to the next frame's RPN as
-extra proposals (the tracking prior). With online adaptation the frames go
-in windows of ``online_adapt_step``: after each window the last
-``min(step, batch_size)`` predictions become pseudo ground truth and the
-model is refit on the un-augmented support frame plus those frames, except
-from the last real window on. The tail window is padded by replicating the
-last real frame, as the JAX package's fused propagation does.
+``eval_sequence_init`` tracks with the un-fine-tuned init; ``eval_stream``
+issues many sequences before fetching any result and brings back only
+bit-packed label planes. For one object group: reset to the learned init
+and fine-tune on augmented copies of the support frame (the mask targets are
+synthesised inside the model's forward), then walk the rest of the sequence
+frame by frame, feeding each frame's predicted mask boxes, jittered, to the
+next frame's RPN as extra proposals (the tracking prior). With online
+adaptation the frames go in windows of ``online_adapt_step``: after a window
+its last ``min(step, batch_size)`` predictions become pseudo ground truth
+and the model is refit on the un-augmented support frame plus those frames.
+
+Two window loops, as in the JAX package: the host loop (``fused_ona=False``,
+the default) ends on a ragged tail window and refits while frames remain;
+the fused formulation (``fused_ona=True``) pads the tail window by
+replicating the last real frame and refits after every window but the last
+real one. ``ona_only_box_head`` refits the box and mask heads alone and
+takes no gradient of the rest.
 
 Every random number of the path comes from ``sample_draws``, drawn from the
 caller's ``torch.Generator`` on the generator's device (a CUDA generator
@@ -40,6 +46,8 @@ from e_osvos_torch.engine.one_shot import (
     _generator,
     _merged_to_host,
     _nanmean,
+    _pack_merged_planes,
+    _planes_to_labels,
     build_pseudo_gt,
     fold_in,
     merge_objects,
@@ -47,9 +55,15 @@ from e_osvos_torch.engine.one_shot import (
     stack_windows,
     stage_sequence,
 )
-from e_osvos_torch.meta_optim import MetaOptimConfig, MetaParams, fine_tune
+from e_osvos_torch.meta_optim import (
+    MetaOptimConfig,
+    MetaParams,
+    fine_tune,
+    select_lrs_by_path,
+)
 from e_osvos_torch.models.deeplab import functional_apply
 from e_osvos_torch.models.mask_rcnn import MaskRCNN, TrainDraws
+from e_osvos_torch.ops.bits import unpack_mask_bits
 from e_osvos_torch.ops.boxes import masks_to_boxes
 from e_osvos_torch.utils.device import resolve_device, upload
 
@@ -57,10 +71,11 @@ from e_osvos_torch.utils.device import resolve_device, upload
 @dataclasses.dataclass(frozen=True)
 class DetectionOneShotConfig(OneShotConfig):
     """Adds the detection knobs: the RPN proposal augmentation mode, the
-    threshold turning a predicted mask into the next frame's box, and the
+    threshold turning a predicted mask into the next frame's box, the
     online-adaptation reset mode (``FIRST_STEP`` continues from the current
-    params, ``FULL`` restarts from the learned init each refit).
-    ``ona_only_box_head`` is not ported yet."""
+    params, ``FULL`` restarts from the learned init each refit), and
+    ``ona_only_box_head``, which refits only the parameters of the box and
+    mask heads."""
 
     proposal_aug_mode: str = "EXTEND"
     box_from_mask_thresh: float = 0.5
@@ -68,23 +83,25 @@ class DetectionOneShotConfig(OneShotConfig):
     ona_only_box_head: bool = False
 
 
+# the parameters an ``ona_only_box_head`` refit updates, by name
+ONA_HEADS = ("box_head", "mask_head")
+
+
 class DetectionOneShotEvaluator:
     """Drives one-shot tracking of object groups with a ``MaskRCNN``.
 
     ``device`` is where frames, labels and draws live: ``cuda`` unless the
-    caller asks for another. ``eval_sequence`` and ``eval_sequence_init``
-    draw from CPU generators. ``on_phase(name)``, when given, is called as
-    each phase ends (``"fine_tune"`` and ``"propagate"`` of each object
-    group, then ``"score"`` of a sequence); it never synchronizes the
-    device."""
+    caller asks for another. ``fused_ona`` picks the fused window loop (off
+    by default, as in the JAX package). ``eval_sequence``,
+    ``eval_sequence_init`` and ``eval_stream`` draw from CPU generators.
+    ``on_phase(name)``, when given, is called as each phase ends
+    (``"fine_tune"`` and ``"propagate"`` of each object group, then
+    ``"score"`` of a sequence); it never synchronizes the device."""
 
     def __init__(self, model: MaskRCNN, meta_cfg: MetaOptimConfig,
                  cfg: DetectionOneShotConfig, device=None,
-                 on_phase: Optional[Callable[[str], None]] = None):
-        if cfg.ona_only_box_head:
-            raise NotImplementedError(
-                "ona_only_box_head is not ported yet (it needs the lr mask "
-                "by parameter path)")
+                 on_phase: Optional[Callable[[str], None]] = None,
+                 fused_ona: bool = False):
         if cfg.ona_reset_mode not in ("FIRST_STEP", "FULL"):
             raise ValueError(f"unknown ona_reset_mode {cfg.ona_reset_mode!r}")
         self.model = model
@@ -93,6 +110,7 @@ class DetectionOneShotEvaluator:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.on_phase = on_phase
+        self.fused_ona = fused_ona and cfg.online_adapt_step > 0
 
     def _phase_done(self, name: str) -> None:
         if self.on_phase is not None:
@@ -192,6 +210,17 @@ class DetectionOneShotEvaluator:
         labels = torch.cat([label[None].to(prop_labels.dtype), prop_labels], 0)
         return self._detection_loss(params, imgs, labels, draws)
 
+    def _ona_meta_params(self, meta_params: MetaParams) -> MetaParams:
+        """The refits' lrs: with ``ona_only_box_head``, those of the box
+        and mask heads alone. The JAX package masks the other lrs to zero
+        (``mask_lrs_by_path``) and stops their gradient; a refit over the
+        heads' lrs alone leaves the other parameters as they are and takes
+        no gradient of the backbone, FPN or RPN."""
+        if not self.cfg.ona_only_box_head:
+            return meta_params
+        return meta_params._replace(log_init_lr=select_lrs_by_path(
+            meta_params.log_init_lr, ONA_HEADS))
+
     def _ona_fine_tune(self, meta_params: MetaParams,
                        generator: torch.Generator, img, label, prop_imgs,
                        prop_labels, params):
@@ -203,7 +232,8 @@ class DetectionOneShotEvaluator:
         draws = self.sample_draws(generator, "refit", n, tuple(img.shape[:2]))
         batches = [(img, label, prop_imgs, prop_labels, draws.select(i))
                    for i in range(n)]
-        return fine_tune(self.meta_cfg, self._ona_loss_fn, meta_params,
+        return fine_tune(self.meta_cfg, self._ona_loss_fn,
+                         self._ona_meta_params(meta_params),
                          batches, init_params=params,
                          early_stop_patience=cfg.early_stop_patience,
                          reset=cfg.ona_reset_mode == "FULL")[0]
@@ -244,16 +274,52 @@ class DetectionOneShotEvaluator:
         return (torch.stack(probs), torch.stack(det_boxes),
                 torch.stack(det_valid), prev_boxes, prev_valid)
 
+    def _propagate(self, meta_params, generator, support_img,
+                   support_label, rest: torch.Tensor, params, boxes, valid,
+                   orig_hw, fused: bool) -> torch.Tensor:
+        """The frames after the support frame, ``rest [R, H, W, 3]``, in
+        windows of ``online_adapt_step`` (all R in one window without
+        online adaptation), with a refit after every window but the last.
+        The host loop ends on a ragged tail window; the fused loop
+        (``fused``) pads it by replicating the last frame, and pads the
+        window count to ``ona_window_bucket``. Returns the probabilities
+        ``[R, H, W]``."""
+        cfg = self.cfg
+        R = rest.shape[0]
+        ona = cfg.online_adapt_step > 0
+        step = cfg.online_adapt_step if ona else R
+        if fused:
+            windows = stack_windows(rest, step,
+                                    cfg.ona_window_bucket if ona else 0)[0]
+        else:
+            windows = rest.split(step)
+        wn_real = -(-R // step)
+        kk = min(step, cfg.batch_size)
+        hw = tuple(rest.shape[1:3])
+        out = []
+        for i, window in enumerate(windows):
+            jitter_u = self.sample_draws(generator, "frames", len(window), hw)
+            w_probs, _, _, boxes, valid = self._segment_window(
+                params, window, boxes, valid, jitter_u)
+            out.append(w_probs)
+            if ona and i < wn_real - 1:
+                pseudo = build_pseudo_gt(w_probs[-kk:],
+                                         cfg.online_adapt_min_prop, orig_hw)
+                params = self._ona_fine_tune(
+                    meta_params, generator, support_img, support_label,
+                    window[-kk:], pseudo, params)
+        return torch.cat(out)[:R]
+
     def _eval_object_group(self, index, seq, frames: torch.Tensor, group,
                            meta_params: MetaParams,
                            generator: torch.Generator, init_params,
                            orig_hw=None,
-                           support_img: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           support_img: Optional[torch.Tensor] = None,
+                           fused: Optional[bool] = None) -> torch.Tensor:
         """``[T, H, W]`` foreground probability of one object group.
         ``frames`` is the raw ``[T, H, W, 3]`` stack on the evaluator's
-        device; ``generator`` gives every draw (``sample_draws``)."""
-        cfg = self.cfg
+        device; ``generator`` gives every draw (``sample_draws``); ``fused``
+        picks the window loop (default: the evaluator's)."""
         frames = frames.to(self.device)
         T = frames.shape[0]
         hw = tuple(frames.shape[1:3])
@@ -271,24 +337,10 @@ class DetectionOneShotEvaluator:
         probs[sf] = (support_label == 1).float()
         if sf + 1 < T:
             boxes, valid = self._initial_boxes(support_label)
-            ona = cfg.online_adapt_step > 0
-            step = cfg.online_adapt_step if ona else T - sf - 1
-            windows, r, wn_real = stack_windows(
-                frames[sf + 1:], step, cfg.ona_window_bucket if ona else 0)
-            kk = min(step, cfg.batch_size)
-            out = []
-            for i in range(windows.shape[0]):
-                jitter_u = self.sample_draws(generator, "frames", step, hw)
-                w_probs, _, _, boxes, valid = self._segment_window(
-                    params, windows[i], boxes, valid, jitter_u)
-                out.append(w_probs)
-                if ona and i < wn_real - 1:
-                    pseudo = build_pseudo_gt(
-                        w_probs[-kk:], cfg.online_adapt_min_prop, orig_hw)
-                    params = self._ona_fine_tune(
-                        meta_params, generator, support_img, support_label,
-                        windows[i][-kk:], pseudo, params)
-            probs[sf + 1:] = torch.cat(out)[:r]
+            probs[sf + 1:] = self._propagate(
+                meta_params, generator, support_img, support_label,
+                frames[sf + 1:], params, boxes, valid, orig_hw,
+                self.fused_ona if fused is None else fused)
         self._phase_done("propagate")
         return probs
 
@@ -314,6 +366,39 @@ class DetectionOneShotEvaluator:
                           torch.stack(obj_probs)[..., :h0, :w0])
         self._phase_done("score")
         return res
+
+    def eval_stream(self, index, seq_names, meta_params: MetaParams,
+                    seed: int, init_params=None) -> Dict[str, np.ndarray]:
+        """One-shot tracking of many sequences (serving): every sequence's
+        fine-tunes, fused window loops and merge are issued before any
+        result is fetched, and only the merged map's packed bit planes (one
+        per object) come back, drained in order.
+
+        Sequence i runs on the seed ``fold_in(seed, i)`` along the schedule
+        of ``eval_sequence`` on the fused loop, so its map equals
+        ``eval_sequence(fold_in(seed, i))``'s merged map with
+        ``fused_ona=True``. Returns ``{name: uint8 [T, H, W]}`` label maps:
+        the support rows from the GT, the frames before a support frame
+        0."""
+        pend = []
+        for i, name in enumerate(seq_names):
+            seq = index.sequences[name]
+            groups = seq.object_groups
+            frames, support, (T, h0, w0) = stage_sequence(
+                index, name, self.device, self.cfg.pad_multiple)
+            seed_i = fold_in(seed, i)
+            probs = torch.stack([
+                self._eval_object_group(
+                    index, seq, frames, g, meta_params,
+                    _generator(fold_in(seed_i, gi)), init_params,
+                    orig_hw=(h0, w0), support_img=support[g.support_frame],
+                    fused=True)
+                for gi, g in enumerate(groups)])[..., :h0, :w0]
+            merged = merge_objects(probs, self.cfg.threshold)
+            pend.append((name, w0, _pack_merged_planes(merged, len(groups))))
+        return {name: _planes_to_labels(unpack_mask_bits(
+                    packed.cpu().numpy(), w0))
+                for name, w0, packed in pend}
 
     def eval_sequence_init(self, index, seq_name: str,
                            meta_params: MetaParams, init_params=None

@@ -10,6 +10,7 @@ from e_osvos_torch.meta_optim.lr_tree import (
     lr_stats,
     mask_lrs_by_path,
     materialize_lrs,
+    select_lrs_by_path,
 )
 from e_osvos_torch.meta_optim.meta_optimizer import (
     MetaOptimConfig,
@@ -36,5 +37,5 @@ __all__ = [
     "clamp_meta_params", "fine_tune", "init_lr_tree", "init_meta_params",
     "inner_sgd_step", "lr_per_tensor", "lr_stats", "mask_lrs_by_path",
     "materialize_lrs", "meta_grads", "meta_loss", "paste_distractor",
-    "reset_params",
+    "reset_params", "select_lrs_by_path",
 ]

@@ -67,6 +67,10 @@ def clamp_lr_tree(lr_tree: LrDict, use_log: bool = True, max_lr: float = 1.0,
     return {k: v.clamp(lo, hi) for k, v in lr_tree.items()}
 
 
+def _matches_path(name: str, substrings: Sequence[str]) -> bool:
+    return any(s.lower() in name.lower() for s in substrings)
+
+
 def mask_lrs_by_path(lrs: LrDict, substrings: Sequence[str],
                      keep_matching: bool = True, zero_value: float = 0.0
                      ) -> LrDict:
@@ -76,13 +80,16 @@ def mask_lrs_by_path(lrs: LrDict, substrings: Sequence[str],
     switches as lr masks (``only_box_head`` keeps ``box_head``/``roi``;
     encoder freezing drops the backbone). ``zero_value`` is ``LOG_LR_MIN``
     for log lrs."""
-    subs = tuple(s.lower() for s in substrings)
+    return {k: v if _matches_path(k, substrings) == keep_matching
+            else torch.full_like(v, zero_value) for k, v in lrs.items()}
 
-    def keep(name: str) -> bool:
-        return any(s in name.lower() for s in subs) == keep_matching
 
-    return {k: v if keep(k) else torch.full_like(v, zero_value)
-            for k, v in lrs.items()}
+def select_lrs_by_path(lrs: LrDict, substrings: Sequence[str]) -> LrDict:
+    """The lrs of the parameters whose name contains one of ``substrings``
+    (the entries ``mask_lrs_by_path`` keeps): an inner loop over this tree
+    updates only those parameters, as over the masked tree, and takes no
+    gradient of the others."""
+    return {k: v for k, v in lrs.items() if _matches_path(k, substrings)}
 
 
 def lr_stats(lr_tree: LrDict, use_log: bool = True) -> Dict[str, torch.Tensor]:

@@ -6,9 +6,10 @@ the flax leaf ``params/aspp/b0_norm/scale`` becomes the parameter
 ``backbone.stem_norm.bias``. Convolution kernels change layout from flax's
 HWIO to torch's OIHW and their leaf name from ``kernel`` to ``weight``.
 
-Inputs are nested dicts of array-likes (numpy arrays, or anything
-``np.asarray`` takes), as ``flax.core.unfreeze`` and a host transfer give
-them; nothing here imports JAX.
+Inputs are nested dicts of array-likes (numpy arrays, tensors, or anything
+``np.asarray`` takes), as ``flax.core.unfreeze`` and a host transfer, or
+``utils.checkpoint.load_flax_checkpoint``, give them; nothing here imports
+JAX.
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ def _kernel_to_port(path: Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
 
 
 def _convert_leaf(path: Tuple[str, ...], value) -> Tuple[str, torch.Tensor]:
+    if isinstance(value, torch.Tensor):  # e.g. a bfloat16 checkpoint leaf
+        value = value.float().numpy()
     arr = np.array(value, dtype=np.float32)  # a writable copy
     leaf = path[-1]
     if leaf == "kernel":

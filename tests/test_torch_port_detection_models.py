@@ -420,8 +420,9 @@ def test_rpn_matches_jax(use_fast_nms):
 
 def test_detection_entry_points_default_to_cuda(tiny):
     """Without a card, the detector and its evaluator built without
-    device="cpu" raise instead of running on the CPU; the unported
-    ``ona_only_box_head`` mode raises too."""
+    device="cpu" raise instead of running on the CPU; with it, the
+    ``ona_only_box_head`` mode builds (the host window loop by default)
+    and an unknown reset mode raises."""
     from e_osvos_torch.engine import (
         DetectionOneShotConfig,
         DetectionOneShotEvaluator,
@@ -436,7 +437,12 @@ def test_detection_entry_points_default_to_cuda(tiny):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DetectionOneShotEvaluator(model, MetaOptimConfig(),
                                   DetectionOneShotConfig())
-    with pytest.raises(NotImplementedError):
+    ev = DetectionOneShotEvaluator(
+        model, MetaOptimConfig(),
+        DetectionOneShotConfig(ona_only_box_head=True, online_adapt_step=5),
+        device="cpu")
+    assert ev.cfg.ona_only_box_head and not ev.fused_ona
+    with pytest.raises(ValueError):
         DetectionOneShotEvaluator(model, MetaOptimConfig(),
-                                  DetectionOneShotConfig(ona_only_box_head=True),
+                                  DetectionOneShotConfig(ona_reset_mode="NONE"),
                                   device="cpu")

@@ -163,7 +163,7 @@ def test_detection_slice_matches_jax():
                       log_init_lr=lr_tree_from_jax(lrs))
     cfg = DetectionOneShotConfig(augment=AugmentConfig(**AUG_KW), **CFG_KW)
     ev = DetectionOneShotEvaluator(model, MetaOptimConfig(use_log_init_lr=False),
-                                   cfg, device="cpu")
+                                   cfg, fused_ona=True, device="cpu")
     ev.sample_draws = JaxDraws(jmodel, variables, key, cfg)
     seen = {"fine_tune": [], "refit": [], "windows": []}
     fine_tune, refit = ev._fine_tune, ev._ona_fine_tune

@@ -45,6 +45,11 @@ def test_port_files_found():
                    "utils/logging.py", "utils/checkpoint.py",
                    "utils/seeds.py"):
         assert f"e_osvos_torch/{module}" in names, module
+    for module in ("config.py", "cli/common.py", "cli/evaluate.py",
+                   "cli/train_meta.py", "data/datasets.py", "data/native.py",
+                   "data/splits.py", "data/synthetic_disk.py",
+                   "utils/png.py", "utils/visualize.py"):
+        assert f"e_osvos_torch/{module}" in names, module
     for source in ("group_norm.cu", "nms.cu"):
         assert (ROOT / "e_osvos_torch" / "csrc" / source).exists()
 

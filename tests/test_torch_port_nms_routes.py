@@ -364,7 +364,9 @@ def test_detection_sequence_nms_calls_match_the_smoke_formula(monkeypatch,
                                    detections_per_img=1), seed=5,
                      device="cpu")
     meta_cfg = MetaOptimConfig(init_lr=1e-3, use_log_init_lr=False)
-    ev = DetectionOneShotEvaluator(model, meta_cfg, cfg, device="cpu")
+    # the fused window loop, as chip_smoke.build_detection_path runs it
+    ev = DetectionOneShotEvaluator(model, meta_cfg, cfg, device="cpu",
+                                   fused_ona=True)
     frames = torch.from_numpy(np.stack([index.get_image("seq00", t)
                                         for t in range(T)]))
     probs = ev._eval_object_group(
