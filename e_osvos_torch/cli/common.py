@@ -2,8 +2,9 @@
 and meta-parameters. Port of ``e_osvos_tpu/cli/common.py``.
 
 Checkpoints: a parent is a flax msgpack file of the JAX package's
-``variables`` (``parent_model.checkpoint``, ``parent_model.<role>.paths``);
-meta-parameters come from a JAX meta checkpoint ``{"meta_params",
+``variables`` or the port's own ``ParentTrainer`` checkpoint (a
+``state_dict`` written by ``torch.save``; ``parent_model.checkpoint``,
+``parent_model.<role>.paths``); meta-parameters come from a JAX meta checkpoint ``{"meta_params",
 "opt_state"}`` (msgpack) or from the port's own ``MetaTrainer.save``
 (``torch.save``). The reference's ``.pth``/``.pt``/``.model`` files need the
 BN-folding importer, which is not ported.
@@ -25,6 +26,7 @@ from e_osvos_torch.data.datasets import (
     read_split_file,
 )
 from e_osvos_torch.data.synthetic import SyntheticVOSIndex
+from e_osvos_torch.data.voc import VOC2012Index
 from e_osvos_torch.meta_optim import MetaParams, init_meta_params
 from e_osvos_torch.models import MaskRCNN, RoIConfig, RPNConfig, build_model
 from e_osvos_torch.models.jax_weights import (
@@ -50,12 +52,17 @@ def _no_torch_import(path: str) -> NotImplementedError:
 
 def build_parent_model(cfg: Dict) -> nn.Module:
     """The model of the ``parent_model`` subtree, seeded with ``seed``, on
-    the config's device. Under second-order meta-gradients the GroupNorms
-    take their plain (``_xla``) form: the kernels' backward supports one
-    level of differentiation."""
+    the config's device. Under second-order meta-gradients the DeepLab
+    family's GroupNorms take their plain (``_xla``) form: the kernels'
+    backward supports one level of differentiation, and that family's
+    second order differentiates through every norm. Mask R-CNN keeps the
+    kernels: its second order is restricted to parameter subtrees
+    (``meta_optim_cfg.second_order_subtrees``), and the kernels raise if
+    one of them needs a norm's second derivative."""
     pm = cfg.get("parent_model", {})
     arch = pm.get("architecture", "DeepLabV3Plus")
-    second_order = cfg.get("meta_optim_cfg", {}).get("second_order_gradients")
+    second_order = (arch != "MaskRCNN" and cfg.get("meta_optim_cfg", {}).get(
+        "second_order_gradients"))
 
     def norm(key: str, default: str) -> str:
         name = str(pm.get(key, default))
@@ -108,7 +115,10 @@ def _parent_state(path: str, model: nn.Module) -> Dict[str, torch.Tensor]:
     and frozen-BN buffers) on the model's device."""
     if path.endswith(TORCH_FILES):
         raise _no_torch_import(path)
-    state = state_dict_from_jax(load_flax_checkpoint(path))
+    if is_torch_checkpoint(path):  # cli.train_parent
+        state = load_checkpoint(path)[0]
+    else:
+        state = state_dict_from_jax(load_flax_checkpoint(path))
     want = model.state_dict()
     if set(state) != set(want):
         raise ValueError(
@@ -151,8 +161,11 @@ def build_indexes(cfg: Dict, role: str = "train") -> List:
             indexes.append(YouTubeVOSIndex(root, split=split,
                                            multi_object=mode))
         elif name == "VOC2012":
-            raise NotImplementedError(
-                "VOC2012 (parent pre-training) is not ported yet (ROADMAP C4)")
+            # parent pre-training (binary fg/bg); the VOC2012 named config
+            # carries the reference's flip / scale-crop / blur stack
+            indexes.append(VOC2012Index(
+                root, split=split or "train",
+                void=str(cfg.get("voc", {}).get("void", "background"))))
         elif name == "Synthetic":
             syn = cfg.get("synthetic", {})
             indexes.append(SyntheticVOSIndex(

@@ -1,8 +1,14 @@
-"""Meta-training command line, port of ``e_osvos_tpu/cli/train_meta.py``,
-for the DeepLab family.
+"""Meta-training command line, port of ``e_osvos_tpu/cli/train_meta.py``.
 
     python -m e_osvos_torch.cli.train_meta with DAVIS-2017 \\
         datasets.train.root=data/DAVIS-2017 num_meta_iters=1000 [device=cpu]
+    python -m e_osvos_torch.cli.train_meta with DAVIS-2017 \\
+        parent_model.architecture=MaskRCNN parent_model.backbone_norm=group \\
+        parent_model.checkpoint=models/parent/parent_final.ckpt
+
+The architecture picks the task family: Mask R-CNN meta-trains on the
+detector's training losses (``parallel.detection_task_fns``, with
+``random_box_coord_perm``), the DeepLab family on its segmentation loss.
 
 Samples meta-tasks from ``datasets.train``, runs ``MetaTrainer`` on one
 device, logs to ``<save_dir>[/<env_suffix>]/metrics.jsonl`` and checkpoints
@@ -32,6 +38,7 @@ from e_osvos_torch.cli.evaluate import build_evaluator
 from e_osvos_torch.engine.meta_trainer import MetaTrainer
 from e_osvos_torch.meta_optim.tasksets import MetaTaskset
 from e_osvos_torch.models import functional_apply
+from e_osvos_torch.parallel import detection_task_fns
 from e_osvos_torch.utils import MetricsLogger
 from e_osvos_torch.utils.checkpoint import is_torch_checkpoint
 
@@ -66,10 +73,6 @@ def make_eval_fn(cfg, model, index):
 def main(argv=None) -> MetaTrainer:
     """Run meta-training; returns the trainer."""
     cfg = cfglib.parse_cli(argv if argv is not None else sys.argv[1:])
-    if cfg.get("parent_model", {}).get("architecture") == "MaskRCNN":
-        raise NotImplementedError(
-            "meta-training Mask R-CNN needs the detection meta-tasks, which "
-            "are not ported yet (ROADMAP D11)")
     save_dir = cfg.get("save_dir") or "models"
     if cfg.get("env_suffix"):
         save_dir = os.path.join(save_dir, str(cfg["env_suffix"]))
@@ -82,6 +85,11 @@ def main(argv=None) -> MetaTrainer:
             "meta_optim_model_file to start from its meta-parameters")
 
     model = init_model_params(cfg, build_parent_model(cfg))
+    step_cfg = cfglib.to_meta_step_config(cfg)
+    apply = functional_apply(model)
+    task_fns = None
+    if cfg.get("parent_model", {}).get("architecture") == "MaskRCNN":
+        task_fns = detection_task_fns(model, step_cfg)
     taskset = MetaTaskset(build_indexes(cfg, "train"),
                           cfglib.to_taskset_config(cfg),
                           seed=int(cfg.get("seed", 1)))
@@ -91,13 +99,13 @@ def main(argv=None) -> MetaTrainer:
         eval_fn = make_eval_fn(cfg, model, val_indexes[0])
 
     trainer = MetaTrainer(
-        functional_apply(model), model, taskset,
+        apply, model, taskset,
         meta_cfg=cfglib.to_meta_optim_config(cfg),
-        step_cfg=cfglib.to_meta_step_config(cfg),
+        step_cfg=step_cfg,
         outer_cfg=cfglib.to_outer_optim_config(cfg),
         train_cfg=cfglib.to_meta_train_config(cfg),
         logger=MetricsLogger(path=os.path.join(save_dir, "metrics.jsonl")),
-        eval_fn=eval_fn, device=cfglib.device_of(cfg))
+        eval_fn=eval_fn, device=cfglib.device_of(cfg), task_fns=task_fns)
     # in place: the outer optimizer holds the trainer's tensors; ``resume``
     # is read once, by ``trainer.restore``
     with torch.no_grad():

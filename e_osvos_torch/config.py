@@ -168,11 +168,11 @@ def _normalize_mode(cfg: Dict) -> str:
 
 
 def to_meta_step_config(cfg: Dict) -> MetaStepConfig:
-    if cfg.get("random_box_coord_perm"):
-        # the detection meta-task's box-coordinate permutation
-        raise NotImplementedError(
-            "random_box_coord_perm is not ported yet: it belongs to the "
-            "detection meta-tasks (ROADMAP D11)")
+    if cfg.get("random_box_coord_perm") and _architecture(cfg) != "MaskRCNN":
+        # the JAX dense task functions drop it; the port drops no key
+        raise ValueError("random_box_coord_perm permutes box-regression "
+                         "targets: it needs parent_model.architecture="
+                         "MaskRCNN")
     return MetaStepConfig(
         num_epochs=int(cfg.get("num_epochs", {}).get("train", 5)),
         bptt_epochs=int(cfg.get("bptt_epochs", 5)),
@@ -184,6 +184,7 @@ def to_meta_step_config(cfg: Dict) -> MetaStepConfig:
         augment=to_augment_config(cfg),
         frame_transform_per_task=bool(
             cfg.get("random_frame_transform_per_task", False)),
+        random_box_coord_perm=bool(cfg.get("random_box_coord_perm", False)),
     )
 
 

@@ -36,6 +36,7 @@ from e_osvos_torch.parallel import (
     MetaStepConfig,
     MetaStepOut,
     OuterOptimConfig,
+    TaskFns,
     make_meta_step,
 )
 from e_osvos_torch.utils import (
@@ -45,6 +46,7 @@ from e_osvos_torch.utils import (
     resolve_device,
     save_checkpoint,
 )
+from e_osvos_torch.utils.device import to_host
 
 
 @dataclasses.dataclass
@@ -69,15 +71,8 @@ class MetaTrainConfig:
 def _losses_to_host(out: MetaStepOut):
     """The step's meta-loss and per-task losses queued for copy to the
     host: ``(host tensor, event to wait on or None)``."""
-    vals = torch.cat([out.meta_loss.reshape(1).float(),
-                      out.per_task_loss.float()])
-    if not vals.is_cuda:
-        return vals, None
-    host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
-    host.copy_(vals, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
+    return to_host(torch.cat([out.meta_loss.reshape(1).float(),
+                              out.per_task_loss.float()]))
 
 
 class MetaTrainer:
@@ -85,7 +80,9 @@ class MetaTrainer:
 
     ``model_apply`` is the functional model (``models.functional_apply``);
     ``init_params`` the model (its parameters and frozen-BN buffers become
-    the learned init) or a parameter dict."""
+    the learned init) or a parameter dict. ``task_fns`` picks the task
+    family (``parallel.detection_task_fns`` for Mask R-CNN; the dense
+    family by default)."""
 
     def __init__(self, model_apply: Callable, init_params: Any,
                  taskset: MetaTaskset,
@@ -95,7 +92,7 @@ class MetaTrainer:
                  train_cfg: MetaTrainConfig = MetaTrainConfig(),
                  logger: Optional[MetricsLogger] = None,
                  eval_fn: Optional[Callable[[MetaParams, int], Dict]] = None,
-                 device=None):
+                 device=None, task_fns: Optional[TaskFns] = None):
         self.device = resolve_device(device)
         self.taskset = taskset
         self.train_cfg = train_cfg
@@ -109,7 +106,7 @@ class MetaTrainer:
             for d in mp))
         self.step = make_meta_step(model_apply, meta_cfg, step_cfg, outer_cfg,
                                    train_cfg.meta_batch_size,
-                                   device=self.device)
+                                   device=self.device, task_fns=task_fns)
         self.opt_state = self.step.init(self.meta_params)
         self.meta_iter = 0
         self.best_eval = -float("inf")

@@ -23,9 +23,15 @@ Two inner loops:
     segment joins the meta-graph as one node: autograd keeps one f32
     gradient sum of the parameters a segment and no activations, whatever
     the number of steps. Second order differentiates through
-    the inner gradients (``create_graph``); it needs the plain GroupNorm
-    (the ``*_xla`` norms), since the kernels' backward supports one level of
-    differentiation and raises under ``create_graph``.
+    the inner gradients (``create_graph``). The GroupNorm kernels' backward
+    supports one level of differentiation and raises under
+    ``create_graph``, so a second-order gradient whose backward crosses a
+    GroupNorm needs the plain norms (the ``*_xla`` forms). With
+    ``second_order_subtrees`` only those parameters' gradients are taken
+    with ``create_graph``; the rest are taken in a second pass without it,
+    as the JAX package stops their gradient. For Mask R-CNN's heads, which
+    sit after every GroupNorm, the backbone's norms then stay on the
+    kernels.
 
 Unlike JAX arrays, tensors are mutable: ``fine_tune`` updates in place, so
 ``reset_params`` hands out a copy of the learned init, never the init
@@ -241,28 +247,47 @@ def _first_order_segment(loss_fn: LossFn, params: Params, lrs: Params,
     return out, losses
 
 
+def _second_order_names(cfg: MetaOptimConfig, names: Sequence[str]
+                        ) -> List[str]:
+    """The parameters whose inner gradient keeps its graph: those whose
+    name contains one of ``second_order_subtrees`` (case-insensitive, the
+    JAX package's rule), or all when none are given."""
+    if not cfg.second_order_subtrees:
+        return list(names)
+    subs = tuple(s.lower() for s in cfg.second_order_subtrees)
+    return [k for k in names if any(s in k.lower() for s in subs)]
+
+
 def _second_order_step(cfg: MetaOptimConfig, loss_fn: LossFn,
                        params: Params, lrs: Params, batch: Any
                        ) -> Tuple[Params, torch.Tensor]:
     """One inner step of the second-order meta-objective, out of place:
-    ``p − lr·g`` for the entries named in ``lrs``, the rest passed on,
-    ``g`` with its graph (detached outside ``second_order_subtrees`` when
-    those are given)."""
+    ``p − lr·g`` for the entries named in ``lrs``, the rest passed on.
+    ``g`` keeps its graph for the parameters of ``second_order_subtrees``
+    (all when none are given); the others' gradients are taken in a second
+    backward without ``create_graph``, so that backward's kernels (the
+    GroupNorms of a backbone) run once-differentiable."""
     names = list(lrs)
     # params carried as constants (after a truncation) become leaves
     params = {k: v if v.requires_grad or k not in lrs
               else v.detach().requires_grad_(True)
               for k, v in params.items()}
     loss = loss_fn(params, batch)
-    grads = torch.autograd.grad(loss, [params[k] for k in names],
-                                create_graph=True)
-    if cfg.second_order_subtrees:
-        subs = tuple(s.lower() for s in cfg.second_order_subtrees)
-        grads = [g if any(s in k.lower() for s in subs) else g.detach()
-                 for k, g in zip(names, grads)]
+    graph = _second_order_names(cfg, names)
+    rest = [k for k in names if k not in set(graph)]
+    grads = {}
+    if graph:
+        grads.update(zip(graph, torch.autograd.grad(
+            loss, [params[k] for k in graph], create_graph=True,
+            retain_graph=True)))
+    if rest:
+        # the graph stays: the kept gradients' meta backward runs through
+        # this step's forward
+        grads.update(zip(rest, torch.autograd.grad(
+            loss, [params[k] for k in rest], retain_graph=bool(graph))))
     new = dict(params)
-    for k, g in zip(names, grads):
-        new[k] = params[k] - lrs[k].to(params[k].dtype) * g
+    for k in names:
+        new[k] = params[k] - lrs[k].to(params[k].dtype) * grads[k]
     return new, loss.detach()
 
 

@@ -204,7 +204,9 @@ class MaskRCNN(nn.Module):
     """The detector.
 
     training: ``model(images, gt_masks, gt_valid, train=True,
-    draws=TrainDraws(...))`` → (total loss, loss dict);
+    draws=TrainDraws(...), box_coord_perm=None)`` → (total loss, loss
+    dict); ``box_coord_perm`` (``[4]`` long) permutes the box-regression
+    targets' coordinates (the meta-tasks' ``random_box_coord_perm``);
     inference: ``model(images, prev_boxes=..., prev_valid=...,
     proposal_aug_mode="EXTEND", draws=u_jitter)`` → ``Detections``.
     """
@@ -254,7 +256,8 @@ class MaskRCNN(nn.Module):
                 gt_valid: Optional[torch.Tensor] = None, train: bool = False,
                 prev_boxes: Optional[torch.Tensor] = None,
                 prev_valid: Optional[torch.Tensor] = None,
-                proposal_aug_mode: Optional[str] = None, draws=None):
+                proposal_aug_mode: Optional[str] = None, draws=None,
+                box_coord_perm: Optional[torch.Tensor] = None):
         h, w = images.shape[1], images.shape[2]
         feats = self.backbone(images.permute(0, 3, 1, 2))
         pyramid = self.fpn(feats)  # [P2..P6], NCHW channels_last
@@ -269,7 +272,7 @@ class MaskRCNN(nn.Module):
         if train:
             return self._forward_train(draws, torch.cat(anchors), logits,
                                        deltas, proposals, roi_feats,
-                                       gt_masks, gt_valid)
+                                       gt_masks, gt_valid, box_coord_perm)
         if proposal_aug_mode and prev_boxes is not None:
             proposals = augment_proposals_with_targets(
                 proposals, prev_boxes, prev_valid, proposal_aug_mode, draws)
@@ -279,7 +282,7 @@ class MaskRCNN(nn.Module):
 
     def _forward_train(self, draws: TrainDraws, all_anchors, rpn_logits,
                        rpn_deltas, proposals: Proposals, roi_feats,
-                       gt_masks, gt_valid):
+                       gt_masks, gt_valid, box_coord_perm=None):
         cfg = self.roi
         lg_all = torch.cat(rpn_logits, 1)  # [B, N]
         dl_all = torch.cat(rpn_deltas, 1)  # [B, N, 4]
@@ -328,6 +331,8 @@ class MaskRCNN(nn.Module):
                       * samp_ok).sum() / n_ok
 
             reg_t = encode_boxes(gt_boxes[samp_gt], samp_boxes)
+            if box_coord_perm is not None:
+                reg_t = reg_t[:, box_coord_perm]
             posm = (samp_label == 1) & samp_ok
             breg_l = (smooth_l1(box_deltas[:, 1] - reg_t).sum(-1)
                       * posm).sum() / n_ok

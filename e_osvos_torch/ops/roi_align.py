@@ -10,8 +10,8 @@ gathered with ``index_select``, whose backward is autograd's scatter-add.
 The JAX package's corner-packed and byte-packed buffers exist because TPU
 gathers are bound by their slice count; here the plain four-corner gather
 computes the same values, so ``multiscale_roi_align`` also stands for the
-JAX ``multiscale_roi_align_packed`` (the training path's form) and
-``stack_roi_align_u8`` gathers the integer map directly.
+JAX ``multiscale_roi_align_packed`` (the training path's form), and
+``stack_roi_align_u8`` is ``stack_roi_align_1ch`` on the integer map.
 """
 
 from __future__ import annotations
@@ -147,16 +147,17 @@ def multiscale_roi_align(feats: Sequence[torch.Tensor], boxes: torch.Tensor,
                         per_roi(off), flat.dtype)
 
 
-def stack_roi_align_u8(maps: torch.Tensor, boxes: torch.Tensor,
-                       map_idx: torch.Tensor, output_size: Tuple[int, int],
-                       sampling_ratio: int = 2, aligned: bool = True
-                       ) -> torch.Tensor:
-    """Single-channel ROI-align of integer maps in [0, 255] (GT masks with
-    the 255 ignore label): ``maps [O, H, W]``, ``boxes [P, 4]`` (image
-    coordinates), ``map_idx [P]`` the map of each roi → ``[P, oh, ow]``
-    float32. Not differentiable: GT targets need no gradient."""
+def stack_roi_align_1ch(maps: torch.Tensor, boxes: torch.Tensor,
+                        map_idx: torch.Tensor, output_size: Tuple[int, int],
+                        sampling_ratio: int = 2, aligned: bool = True
+                        ) -> torch.Tensor:
+    """Single-channel ROI-align from a stack of maps: ``maps [O, H, W]``,
+    ``boxes [P, 4]`` (image coordinates, spatial scale 1), ``map_idx [P]``
+    the map of each roi → ``[P, oh, ow]`` float32 (torchvision
+    ``project_masks_on_boxes`` semantics: GT-mask crops without a ``[P, H,
+    W]`` copy). Differentiable with respect to ``maps``."""
     o, h, w = maps.shape
-    flat = maps.detach().clamp(0, 255).to(torch.int32).reshape(-1).float()
+    flat = maps.reshape(-1).float()
     yy, xx = _sample_coords(boxes, output_size, sampling_ratio, aligned)
     y0 = torch.floor(yy)
     x0 = torch.floor(xx)
@@ -173,6 +174,17 @@ def stack_roi_align_u8(maps: torch.Tensor, boxes: torch.Tensor,
             ok = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
             wgt = (wy if dy else 1.0 - wy) * (wx if dx else 1.0 - wx)
             idx = base + yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
-            val = flat[idx]
-            acc = acc + val * torch.where(ok, wgt, 0.0)
+            acc = acc + flat[idx] * torch.where(ok, wgt, 0.0)
     return acc.mean(dim=(3, 4))
+
+
+def stack_roi_align_u8(maps: torch.Tensor, boxes: torch.Tensor,
+                       map_idx: torch.Tensor, output_size: Tuple[int, int],
+                       sampling_ratio: int = 2, aligned: bool = True
+                       ) -> torch.Tensor:
+    """``stack_roi_align_1ch`` of integer maps in [0, 255] (GT masks with
+    the 255 ignore label), taken as integers → ``[P, oh, ow]`` float32.
+    Not differentiable: GT targets need no gradient."""
+    ints = maps.detach().clamp(0, 255).to(torch.int32)
+    return stack_roi_align_1ch(ints, boxes, map_idx, output_size,
+                               sampling_ratio, aligned)

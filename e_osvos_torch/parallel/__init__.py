@@ -6,9 +6,13 @@ from e_osvos_torch.parallel.meta_step import (
     MetaStepOut,
     OuterOptimConfig,
     OuterRAdam,
+    TaskDraws,
+    TaskFns,
+    detection_task_fns,
     make_meta_step,
     make_outer_optimizer,
 )
 
 __all__ = ["MetaStep", "MetaStepConfig", "MetaStepOut", "OuterOptimConfig",
-           "OuterRAdam", "make_meta_step", "make_outer_optimizer"]
+           "OuterRAdam", "TaskDraws", "TaskFns", "detection_task_fns",
+           "make_meta_step", "make_outer_optimizer"]

@@ -9,13 +9,20 @@ batch size, and the outer step (elementwise clip → coupled weight decay →
 RAdam, per group) and the lr clamp update the meta-parameters in place. The
 task axis over several GPUs with ``torch.distributed`` is later work.
 
+Two task families, as in the JAX step's ``task_fns``: the dense one
+(DeepLab, the default) and the detection one (Mask R-CNN,
+``detection_task_fns``), whose losses are the detector's summed training
+losses over a mask target synthesised in the forward.
+
 Each task's random draws come from device generators seeded from the task's
 seed with ``fold_in``, following the JAX step's keys: inner step e's
-support augmentations from ``fold_in(seed, e)``, the per-task augmentation
-of ``frame_transform_per_task`` from ``fold_in(seed, 0x7A)``. (The dense
-family's query pass draws nothing; the JAX query key ``0x71`` serves the
-detection family.) ``MetaStep.task_draws`` is the one function that draws,
-so a caller can hand in other draws.
+support augmentations (and, for detection, its anchor and RoI sampling
+uniforms) from ``fold_in(seed, e)``, the per-task augmentation of
+``frame_transform_per_task`` from ``fold_in(seed, 0x7A)``, the detection
+query pass's sampling uniforms from ``fold_in(seed, 0x71)`` and its
+box-coordinate permutation from ``fold_in(seed, 0x42)``.
+``MetaStep.task_draws`` is the one function that draws, so a caller can
+hand in other draws.
 
 The outer RAdam is optax's formula (``optax.radam``: ``r·m̂ / (sqrt(v̂) +
 eps)``, rectified once ``ρ_t >= 5``), written with ``torch._foreach_*`` ops:
@@ -27,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,11 +46,15 @@ from e_osvos_torch.meta_optim import (
     clamp_meta_params,
     meta_grads,
 )
+from e_osvos_torch.models.deeplab import functional_apply
+from e_osvos_torch.models.mask_rcnn import TrainDraws
 from e_osvos_torch.ops import losses as loss_ops
 from e_osvos_torch.utils.device import resolve_device, upload
 from e_osvos_torch.utils.seeds import fold_in
 
 TASK_KEY = 0x7A  # per-task augmentation (frame_transform_per_task)
+QUERY_KEY = 0x71  # the detection query pass's sampling draws
+PERM_KEY = 0x42  # the detection box-coordinate permutation
 
 # optax.radam's defaults
 RADAM_B1 = 0.9
@@ -77,7 +88,11 @@ class MetaStepConfig:
     augmentations per copy and inner step, un-augmented queries.
 
     ``remat`` checkpoints the inner steps of second-order meta-gradients;
-    first order keeps no activations across steps and ignores it."""
+    first order keeps no activations across steps and ignores it.
+
+    ``random_box_coord_perm`` (detection family): one random permutation
+    of the box-regression targets' coordinates per task, shared by its
+    inner steps and query pass."""
 
     num_epochs: int = 5
     bptt_epochs: int = 5
@@ -88,6 +103,7 @@ class MetaStepConfig:
     remat: bool = True
     augment: transforms.AugmentConfig = dataclasses.field(
         default_factory=transforms.AugmentConfig)
+    random_box_coord_perm: bool = False
 
 
 class OuterRAdam(torch.optim.Optimizer):
@@ -164,6 +180,13 @@ def make_outer_optimizer(cfg: OuterOptimConfig, meta_params: MetaParams
     return OuterRAdam(groups)
 
 
+def _stack(draws):
+    """Per-step draws (NamedTuples of tensors or None) stacked on a new
+    leading axis."""
+    return type(draws[0])(*(None if f[0] is None else torch.stack(f)
+                            for f in zip(*draws)))
+
+
 class MetaStepOut(NamedTuple):
     meta_params: MetaParams
     opt_state: OuterRAdam
@@ -172,10 +195,40 @@ class MetaStepOut(NamedTuple):
     train_losses: torch.Tensor  # [B, num_epochs] inner train losses
 
 
-def _task_fns(model_apply: Callable, cfg: MetaStepConfig):
-    """(train_loss_fn, query_loss_fn) of the dense family: train takes
-    ``(support img, label, draws [B])`` and augments on the device; query
-    takes ``(imgs, labels)`` as they are."""
+class TaskFns(NamedTuple):
+    """A task family's losses. ``train_loss_fn(params, (img, label, aug,
+    sample, perm))`` augments one support frame on the device with the
+    draws ``aug`` ([B] fields); ``query_loss_fn(params, (imgs, labels,
+    sample, perm))`` takes its frames as they are. ``sample`` and ``perm``
+    are the detection family's sampling uniforms (``TrainDraws``) and
+    box-coordinate permutation (None for the dense family).
+    ``sample_shapes(hw, batch)``, for the detection family, gives the
+    shapes of one forward's sampling uniforms."""
+
+    train_loss_fn: Callable
+    query_loss_fn: Callable
+    sample_shapes: Optional[Callable] = None
+
+
+class TaskDraws(NamedTuple):
+    """Every random draw of one task: ``aug`` per inner step ([E, B]
+    fields) or, with ``frame_transform_per_task``, per frame ([1 + Q],
+    support first); for the detection family ``train`` (``TrainDraws``
+    [E, B or 1, ...]), ``query`` (``TrainDraws`` [Q, ...]) and ``perm``
+    ([4] long, None without ``random_box_coord_perm``)."""
+
+    aug: transforms.AugmentDraws
+    train: Optional[TrainDraws] = None
+    query: Optional[TrainDraws] = None
+    perm: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "TaskDraws":
+        return TaskDraws(*(None if t is None else t.to(device)
+                           for t in self))
+
+
+def _task_fns(model_apply: Callable, cfg: MetaStepConfig) -> TaskFns:
+    """The dense family's losses."""
 
     def loss_on(params, imgs, labels):
         imgs = transforms.normalize(imgs, cfg.normalize_mode)
@@ -185,15 +238,46 @@ def _task_fns(model_apply: Callable, cfg: MetaStepConfig):
         return loss_ops.compute_loss(cfg.loss_func, logits, gts, valid)
 
     def train_loss_fn(params, batch):
-        img, label, draws = batch
+        img, label, draws = batch[:3]
         imgs, labels = transforms.augment_support_batch(img, label, draws,
                                                         cfg.augment)
         return loss_on(params, imgs, labels)
 
     def query_loss_fn(params, batch):
-        return loss_on(params, *batch)
+        return loss_on(params, *batch[:2])
 
-    return train_loss_fn, query_loss_fn
+    return TaskFns(train_loss_fn, query_loss_fn)
+
+
+def detection_task_fns(model, cfg: MetaStepConfig) -> TaskFns:
+    """The detection family's losses of a ``MaskRCNN`` (the reference's
+    default architecture): the detector's summed training losses on the
+    normalized images, one object a frame, the 255 label carried into the
+    mask target and ``gt_valid`` where the object has a pixel."""
+    model_apply = functional_apply(model)
+
+    def detection_loss(params, imgs, labels, sample, perm):
+        imgs = transforms.normalize(imgs, cfg.normalize_mode)
+        gt_masks = torch.where(labels == 255, 255.0, labels.float())[:, None]
+        gt_valid = (gt_masks == 1).any(dim=(2, 3))
+        total, _ = model_apply(params, imgs, gt_masks, gt_valid, train=True,
+                               draws=sample, box_coord_perm=perm)
+        return total
+
+    def train_loss_fn(params, batch):
+        img, label, aug, sample, perm = batch
+        imgs, labels = transforms.augment_support_batch(img, label, aug,
+                                                        cfg.augment)
+        return detection_loss(params, imgs, labels, sample, perm)
+
+    def query_loss_fn(params, batch):
+        imgs, labels, sample, perm = batch
+        return detection_loss(params, imgs.float(), labels, sample, perm)
+
+    def sample_shapes(hw, batch):
+        return model.draw_shapes(hw, batch, num_objects=1)
+
+    return TaskFns(train_loss_fn, query_loss_fn, sample_shapes)
 
 
 class MetaStep:
@@ -205,18 +289,25 @@ class MetaStep:
     ``on_phase``, when set, is called with the name of each phase as it
     ends: per task ``prepare`` (upload, draws, per-task augmentation), then
     per segment ``inner`` and ``query`` (``meta_grads``); ``outer`` after
-    the outer update and the clamp."""
+    the outer update and the clamp.
+
+    ``task_fns`` picks the task family: the dense one by default,
+    ``detection_task_fns(...)`` for Mask R-CNN."""
 
     def __init__(self, model_apply: Callable, meta_cfg: MetaOptimConfig,
                  step_cfg: MetaStepConfig, outer_cfg: OuterOptimConfig,
-                 meta_batch_size: int, device=None):
+                 meta_batch_size: int, device=None,
+                 task_fns: Optional[TaskFns] = None):
+        if step_cfg.random_box_coord_perm and (
+                task_fns is None or task_fns.sample_shapes is None):
+            raise ValueError("random_box_coord_perm belongs to the detection "
+                             "task family (detection_task_fns)")
         self.meta_cfg = meta_cfg
         self.step_cfg = step_cfg
         self.outer_cfg = outer_cfg
         self.meta_batch_size = meta_batch_size
         self.device = resolve_device(device)
-        self.train_loss_fn, self.query_loss_fn = _task_fns(model_apply,
-                                                           step_cfg)
+        self.task_fns = task_fns or _task_fns(model_apply, step_cfg)
         self.on_phase: Optional[Callable[[str], None]] = None
 
     def init(self, meta_params: MetaParams) -> OuterRAdam:
@@ -226,47 +317,71 @@ class MetaStep:
         if self.on_phase is not None:
             self.on_phase(phase)
 
-    def task_draws(self, seed: int, num_queries: int
-                   ) -> transforms.AugmentDraws:
-        """Every random draw of one task, on the device: per inner step e
-        the ``train_batch_size`` support augmentations (fields ``[E, B]``),
-        or with ``frame_transform_per_task`` the task's frame draws (fields
-        ``[1 + num_queries]``, support first)."""
+    def task_draws(self, seed: int, num_queries: int,
+                   hw: Tuple[int, int]) -> TaskDraws:
+        """Every random draw of one task of ``hw`` frames, on the device:
+        per inner step e the ``train_batch_size`` support augmentations
+        (fields ``[E, B]``), or with ``frame_transform_per_task`` the
+        task's frame draws (fields ``[1 + num_queries]``, support first);
+        for the detection family also the sampling uniforms of each inner
+        step (its batch: ``train_batch_size``, or 1 with
+        ``frame_transform_per_task``) and of the query pass, and the
+        box-coordinate permutation."""
         cfg = self.step_cfg
+        dev = self.device
 
         def gen(i):
-            return torch.Generator(device=self.device).manual_seed(
-                fold_in(seed, i))
+            return torch.Generator(device=dev).manual_seed(fold_in(seed, i))
 
+        def sample(g, batch):
+            return TrainDraws(*(torch.rand(s, generator=g, device=dev)
+                                for s in self.task_fns.sample_shapes(
+                                    hw, batch)))
+
+        detection = self.task_fns.sample_shapes is not None
+        steps = [gen(e) for e in range(cfg.num_epochs)]
         if cfg.frame_transform_per_task:
-            return transforms.sample_task_draws(gen(TASK_KEY), cfg.augment,
-                                                1 + num_queries)
-        per_step = [transforms.sample_augment_draws(gen(e), cfg.augment,
-                                                    cfg.train_batch_size)
-                    for e in range(cfg.num_epochs)]
-        return transforms.AugmentDraws(*(
-            None if f[0] is None else torch.stack(f)
-            for f in zip(*per_step)))
+            aug = transforms.sample_task_draws(gen(TASK_KEY), cfg.augment,
+                                               1 + num_queries)
+        else:
+            aug = _stack([transforms.sample_augment_draws(
+                g, cfg.augment, cfg.train_batch_size) for g in steps])
+        if not detection:
+            return TaskDraws(aug)
+        batch = 1 if cfg.frame_transform_per_task else cfg.train_batch_size
+        perm = (torch.randperm(4, generator=gen(PERM_KEY), device=dev)
+                if cfg.random_box_coord_perm else None)
+        return TaskDraws(aug, _stack([sample(g, batch) for g in steps]),
+                         sample(gen(QUERY_KEY), num_queries), perm)
 
     def task_grads(self, meta_params: MetaParams, s_img, s_label, q_imgs,
                    q_labels, seed: int):
         """``(loss, grads, train losses)`` of one task on the device."""
         cfg = self.step_cfg
-        draws = self.task_draws(seed, q_imgs.shape[0])
+        fns = self.task_fns
+        draws = self.task_draws(seed, q_imgs.shape[0],
+                                tuple(s_img.shape[:2]))
+
+        def step_sample(e):
+            return None if draws.train is None else draws.train.select(e)
+
         if cfg.frame_transform_per_task:
             a_img, a_label, aq_imgs, aq_labels = (
                 transforms.augment_task_frames(s_img, s_label, q_imgs,
-                                               q_labels, draws, cfg.augment))
-            train_batches = [(a_img[None], a_label[None])] * cfg.num_epochs
-            inner_fn = self.query_loss_fn
-            query_batch = (aq_imgs, aq_labels)
+                                               q_labels, draws.aug,
+                                               cfg.augment))
+            train_batches = [(a_img[None], a_label[None], step_sample(e),
+                              draws.perm) for e in range(cfg.num_epochs)]
+            inner_fn = fns.query_loss_fn
+            query_batch = (aq_imgs, aq_labels, draws.query, draws.perm)
         else:
-            train_batches = [(s_img, s_label, draws.select(e))
+            train_batches = [(s_img, s_label, draws.aug.select(e),
+                              step_sample(e), draws.perm)
                              for e in range(cfg.num_epochs)]
-            inner_fn = self.train_loss_fn
-            query_batch = (q_imgs, q_labels)
+            inner_fn = fns.train_loss_fn
+            query_batch = (q_imgs, q_labels, draws.query, draws.perm)
         self._mark("prepare")
-        return meta_grads(self.meta_cfg, inner_fn, self.query_loss_fn,
+        return meta_grads(self.meta_cfg, inner_fn, fns.query_loss_fn,
                           meta_params, train_batches, query_batch,
                           bptt_epochs=cfg.bptt_epochs, remat=cfg.remat,
                           on_phase=self.on_phase)
@@ -316,7 +431,8 @@ class MetaStep:
 
 def make_meta_step(model_apply: Callable, meta_cfg: MetaOptimConfig,
                    step_cfg: MetaStepConfig, outer_cfg: OuterOptimConfig,
-                   meta_batch_size: int, device=None) -> MetaStep:
+                   meta_batch_size: int, device=None,
+                   task_fns: Optional[TaskFns] = None) -> MetaStep:
     """The meta step on ``device`` (``cuda`` unless asked otherwise)."""
     return MetaStep(model_apply, meta_cfg, step_cfg, outer_cfg,
-                    meta_batch_size, device=device)
+                    meta_batch_size, device=device, task_fns=task_fns)

@@ -22,6 +22,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def to_host(t: torch.Tensor):
+    """``t`` queued for copy to pinned host memory behind the work that
+    makes it: ``(host tensor, event to wait on or None)``. Waiting on the
+    event waits for this copy, not for work issued after it."""
+    if not t.is_cuda:
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
 def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``. To a card it goes from pinned memory
     without blocking the host, so the upload overlaps queued work."""

@@ -3,7 +3,9 @@ tree written here: ``cli.evaluate.main`` of both, from the same
 JAX-written parent and meta checkpoints (msgpack), give per-sequence J and
 F within 1e-3 and PNG label maps that differ in at most 0.1% of the pixels;
 ``cli.train_meta.main`` runs two meta-iterations whose checkpoint loads back
-through ``meta_optim_model_file``; what the port cannot do yet raises.
+through ``meta_optim_model_file``; what the port cannot do yet raises (the
+training command lines of both families are in
+``test_torch_port_cli_training.py``).
 
 resnet10 frozen-BN DeepLabV3+ with a GN-16 head at os16 in fp32, 32x48
 frames, identity augmentation (scale 1, no rotation, jitter or flip), so
@@ -178,20 +180,12 @@ def test_train_meta_checkpoint_loads_back(tree):
 
 @pytest.mark.parametrize("extra, match", [
     (["parent_model.checkpoint=parent.pth"], "torch_import"),
-    (["datasets.val.name=VOC2012"], "C4"),
     (["eval_frame_parallel=True"], "E1"),
-], ids=["pth_parent", "voc2012", "frame_parallel"])
+], ids=["pth_parent", "frame_parallel"])
 def test_evaluate_raises_what_is_not_ported(tree, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         evaluate.main(tree["argv"] + extra + [
             f"save_dir={tree['dir'] / 'nope'}", "device=cpu"])
-
-
-def test_train_meta_raises_for_maskrcnn(tree):
-    with pytest.raises(NotImplementedError, match="D11"):
-        train_meta.main(tree["argv"] + [
-            "parent_model.architecture=MaskRCNN", "device=cpu",
-            f"save_dir={tree['dir'] / 'nope'}"])
 
 
 def test_module_entry_point_needs_a_card_or_cpu(tree):

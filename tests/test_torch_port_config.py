@@ -36,6 +36,10 @@ ARGVS = {
                      "train_early_stopping_cfg.patience=3",
                      "data_cfg.normalize=True", "remat=False",
                      "random_frame_transform_per_task=False"],
+    "maskrcnn_meta": ["with", "DAVIS-2017",
+                      "parent_model.architecture=MaskRCNN",
+                      "random_box_coord_perm=True",
+                      "meta_optim_cfg.second_order_gradients=True"],
 }
 VIEWS = ("to_meta_optim_config", "to_outer_optim_config", "to_augment_config",
          "to_meta_step_config", "to_one_shot_config", "to_meta_train_config",
@@ -50,15 +54,13 @@ def _fields(obj):
 @pytest.mark.parametrize("view", VIEWS)
 @pytest.mark.parametrize("argv", list(ARGVS.values()), ids=list(ARGVS))
 def test_view_matches_jax(argv, view):
-    """Every field of the port's config equals the JAX one; the JAX
-    package's only extra field (``random_box_coord_perm``) stays at its
-    default. ``profile_dir`` is no key of the YAML: each package keeps its
-    own default (the port's under the working directory)."""
+    """Every field of the port's config equals the JAX one.
+    ``profile_dir`` is no key of the YAML: each package keeps its own
+    default (the port's under the working directory)."""
     cfg, j_cfg = config.parse_cli(argv), j_config.parse_cli(argv)
     assert cfg == j_cfg
     got = _fields(getattr(config, view)(cfg))
     want = _fields(getattr(j_config, view)(j_cfg))
-    assert want.pop("random_box_coord_perm", False) is False
     if view == "to_meta_train_config":
         assert got.pop("profile_dir") == "profile"
         want.pop("profile_dir")
@@ -120,8 +122,23 @@ def test_second_order_picks_plain_group_norms():
             if n.endswith("dec_norm1")][0].use_kernel
 
 
+def test_maskrcnn_second_order_keeps_the_kernel_norms():
+    """Mask R-CNN's second order is restricted to parameter subtrees (the
+    heads, after every GroupNorm), so its backbone norms stay on the
+    kernels; ``random_box_coord_perm`` reaches the meta step's config."""
+    cfg = config.parse_cli(ARGVS["maskrcnn_meta"] + [
+        "parent_model.encoder=resnet10", "parent_model.backbone_norm=group4",
+        "parent_model.dtype=float32", "device=cpu"])
+    model = build_parent_model(cfg)
+    norms = [m for m in model.modules() if hasattr(m, "use_kernel")]
+    assert len(norms) == 17 and all(m.use_kernel for m in norms)  # resnet10
+    assert config.to_meta_step_config(cfg).random_box_coord_perm
+    assert config.to_meta_optim_config(cfg).second_order_subtrees == (
+        "roi_heads",)
+
+
 @pytest.mark.parametrize("argv, error", [
-    (["random_box_coord_perm=True"], NotImplementedError),
+    (["random_box_coord_perm=True"], ValueError),
     (["parent_model.backbone_norm=batch"], NotImplementedError),
     (["parent_model.architecture=NoSuchNet"], ValueError),
 ], ids=["box_coord_perm", "batch_norm", "architecture"])

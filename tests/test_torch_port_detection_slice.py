@@ -35,6 +35,7 @@ from e_osvos_torch.engine import (
     DetectionOneShotConfig,
     DetectionOneShotEvaluator,
 )
+from e_osvos_torch.engine.one_shot import build_pseudo_gt
 from e_osvos_torch.meta_optim import MetaOptimConfig, MetaParams
 from e_osvos_torch.models.jax_weights import (
     lr_tree_from_jax,
@@ -102,32 +103,21 @@ class JaxDraws:
         return torch.stack(frames)
 
 
-def test_detection_slice_matches_jax():
-    """Fine-tuned and refit params within 1e-4 of each tensor's largest
-    magnitude (f32 convolutions and their gradients summed in another
-    order, two steps each); per-frame detection boxes atol 1e-2 px and validity flags
-    exactly; probabilities atol 1e-3 (the pasted masks move with their
-    boxes)."""
-    rng = np.random.RandomState(0)
-    jmodel, variables, model = tiny_pair(detections_per_img=1)
-    index_j = JSyntheticVOSIndex(num_sequences=1, num_frames=T,
-                                 size=(SIZE, SIZE), seed=4)
-    seq_j = index_j.sequences["seq00"]
-    frames = np.stack([index_j.get_image("seq00", t) for t in range(T)])
-    lrs = jax.tree_util.tree_map(
-        lambda l: rng.uniform(1e-3, 1e-2, np.shape(l)).astype(np.float32),
-        jax.device_get(j_init_lr_tree(variables["params"], "neuron")))
+# The reference's own spread on this sequence: weights scaled by these
+# factors move the JAX run's boxes by 0.0056-0.0156 px at 1 ± 1e-6, 0.41 px at
+# 1 - 2e-6, 4.19 px at 1 - 3e-6 and 16.65 px at 1 + 3e-6 (probabilities by up
+# to 0.69). A refit about 1e-5 away in its parameters takes another branch
+# (the RPN's and the box sampler's discrete choices), so the end-to-end
+# boxes carry the reference's conditioning, not the port's error
+# (scripts/parity_spread.py slice prints these spreads and the stages').
+SPREAD_SCALES = (1 + 3e-6, 1 - 3e-6)
 
-    # ---- JAX: the fused path of eval_sequence, one object group ----
-    j_cfg = JDetectionOneShotConfig(augment=JAugmentConfig(**AUG_KW),
-                                    **CFG_KW)
+
+def _jax_group(j_ev, variables, lrs, frames, label, key):
+    """The JAX fused path of one object group: fine-tuned and refit params,
+    each window's (params, carry in, probs, boxes, valid), probs [T-1]."""
     j_meta = JMetaParams(model_init=variables, log_init_lr={"params": lrs})
-    j_ev = JDetectionOneShotEvaluator(
-        jmodel, JMetaOptimConfig(use_log_init_lr=False), j_cfg,
-        fused_ona=True)
-    key = jax.random.PRNGKey(11)
     k_ft, k_win, k_ona = jax.random.split(key, 3)
-    label = jnp.asarray((index_j.get_label("seq00", 0) == 1).astype(np.int32))
     support = jnp.asarray(frames[0])
     j_params, _ = j_ev._jit_ft(j_meta, k_ft, support, label, None)
     boxes0, valid0 = j_masks_to_boxes((label == 1).astype(jnp.float32)[None])
@@ -139,22 +129,85 @@ def test_detection_slice_matches_jax():
         j_meta, support, label, windows, w_keys, ona_keys,
         jax.tree_util.tree_map(jnp.copy, j_params),  # donated
         boxes0, valid0, jnp.int32(wn_real))
-    j_probs = np.zeros((T, SIZE, SIZE), np.float32)
-    j_probs[0] = np.asarray(label == 1)
-    j_probs[1:] = np.asarray(w_flat)[:r]
     # the per-frame boxes the fused scan carries, from its window body: two
     # windows with one refit between them, so window 1 runs on the final
     # params
     assert wn == wn_real == 2
-    j_boxes, j_valid = [], []
+    out = []
     boxes, valid = boxes0, valid0
     for w, params in enumerate((j_params, j_final)):
+        carry = (np.asarray(boxes), np.asarray(valid))
         w_probs, b, v, boxes, valid = j_ev._jit_window(
             params, windows[w], boxes, valid, w_keys[w])
-        j_boxes.append(np.asarray(b))
-        j_valid.append(np.asarray(v))
-        np.testing.assert_allclose(np.asarray(w_probs),
-                                   j_probs[1 + 2 * w:3 + 2 * w], atol=1e-6)
+        out.append(dict(params=params, carry=carry, frames=np.asarray(
+            windows[w]), probs=np.asarray(w_probs), boxes=np.asarray(b),
+            valid=np.asarray(v)))
+    probs = np.asarray(w_flat)[:r]
+    np.testing.assert_allclose(np.concatenate([o["probs"] for o in out]),
+                               probs, atol=1e-6)
+    return j_params, j_final, out, probs
+
+
+def _port_params(j_tree):
+    return state_dict_from_jax({"params": jax.device_get(j_tree["params"])})
+
+
+def _assert_params_close(got, j_tree, what):
+    want = _port_params(j_tree)
+    for name, p in got.items():
+        w = want[name].numpy()
+        np.testing.assert_allclose(p.detach().numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max(),
+                                   err_msg=f"{what}: {name}")
+
+
+def test_detection_slice_matches_jax():
+    """Stage by stage on identical inputs, then end to end.
+
+    Fine-tuned params, and the refit's from JAX's fine-tuned params, within
+    1e-4 of each tensor's largest magnitude (f32 convolutions and their
+    gradients summed in another order, two steps each). Each window run on
+    JAX's params, carried boxes and draws: boxes atol 1e-2 px, validity
+    flags exactly, probabilities atol 1e-3 (mean 1e-5). End to end, on the
+    port's own params: validity flags exactly, boxes and probabilities
+    within the JAX reference's own spread under weights scaled by
+    ``SPREAD_SCALES`` (measured here and asserted above the old 5e-2 px)."""
+    rng = np.random.RandomState(0)
+    jmodel, variables, model = tiny_pair(detections_per_img=1)
+    index_j = JSyntheticVOSIndex(num_sequences=1, num_frames=T,
+                                 size=(SIZE, SIZE), seed=4)
+    frames = np.stack([index_j.get_image("seq00", t) for t in range(T)])
+    lrs = jax.tree_util.tree_map(
+        lambda l: rng.uniform(1e-3, 1e-2, np.shape(l)).astype(np.float32),
+        jax.device_get(j_init_lr_tree(variables["params"], "neuron")))
+
+    # ---- JAX: the fused path of eval_sequence, one object group ----
+    j_cfg = JDetectionOneShotConfig(augment=JAugmentConfig(**AUG_KW),
+                                    **CFG_KW)
+    j_ev = JDetectionOneShotEvaluator(
+        jmodel, JMetaOptimConfig(use_log_init_lr=False), j_cfg,
+        fused_ona=True)
+    key = jax.random.PRNGKey(11)
+    label = jnp.asarray((index_j.get_label("seq00", 0) == 1).astype(np.int32))
+    j_params, j_final, j_windows, j_rest = _jax_group(
+        j_ev, variables, lrs, frames, label, key)
+    j_probs = np.zeros((T, SIZE, SIZE), np.float32)
+    j_probs[0] = np.asarray(label == 1)
+    j_probs[1:] = j_rest
+    j_boxes = np.concatenate([o["boxes"] for o in j_windows])
+    j_valid = np.concatenate([o["valid"] for o in j_windows])
+
+    # the reference's own spread: the same run on weights scaled by 1 ± eps
+    box_spread = prob_spread = 0.0
+    for s in SPREAD_SCALES:
+        scaled = jax.tree_util.tree_map(lambda x: x * np.float32(s), variables)
+        _, _, wins, rest = _jax_group(j_ev, scaled, lrs, frames, label, key)
+        np.testing.assert_array_equal(
+            np.concatenate([o["valid"] for o in wins]), j_valid)
+        box_spread = max(box_spread, np.abs(
+            np.concatenate([o["boxes"] for o in wins]) - j_boxes).max())
+        prob_spread = max(prob_spread, np.abs(rest - j_rest).max())
+    assert box_spread > 5e-2, box_spread
 
     # ---- the port, on the same weights, lrs and draws ----
     sd = state_dict_from_jax(variables)
@@ -164,7 +217,8 @@ def test_detection_slice_matches_jax():
     cfg = DetectionOneShotConfig(augment=AugmentConfig(**AUG_KW), **CFG_KW)
     ev = DetectionOneShotEvaluator(model, MetaOptimConfig(use_log_init_lr=False),
                                    cfg, fused_ona=True, device="cpu")
-    ev.sample_draws = JaxDraws(jmodel, variables, key, cfg)
+    draws = JaxDraws(jmodel, variables, key, cfg)
+    ev.sample_draws = draws
     seen = {"fine_tune": [], "refit": [], "windows": []}
     fine_tune, refit = ev._fine_tune, ev._ona_fine_tune
     segment = ev._segment_window
@@ -176,9 +230,8 @@ def test_detection_slice_matches_jax():
         return out
 
     def record_refit(*args):
-        out = refit(*args)
-        seen["refit"].append({k: v.detach().clone() for k, v in out.items()})
-        return out
+        seen["refit"].append(args[2:4])  # the support image and label
+        return refit(*args)
 
     def record_window(*args):
         out = segment(*args)
@@ -196,31 +249,50 @@ def test_detection_slice_matches_jax():
                                   seq.object_groups[0], meta,
                                   torch.Generator().manual_seed(0), None)
     assert phases == ["fine_tune", "propagate"]
-    assert ev.sample_draws.calls == {"fine_tune": 1, "frames": wn,
-                                     "refit": wn_real - 1}
+    wn = len(j_windows)
+    assert draws.calls == {"fine_tune": 1, "frames": wn, "refit": wn - 1}
 
-    # the fine-tuned params, then the refit's
-    ((got_ft,), (got_refit,)) = seen["fine_tune"], seen["refit"]
-    moved = 0
-    for got, j_tree in ((got_ft, j_params), (got_refit, j_final)):
-        want = state_dict_from_jax({"params": jax.device_get(j_tree["params"])})
-        for name, p in got.items():
-            w = want[name].numpy()
-            np.testing.assert_allclose(p.numpy(), w, rtol=0,
-                                       atol=1e-4 * np.abs(w).max(),
-                                       err_msg=name)
-            moved += not np.array_equal(w, sd[name].numpy())
+    # stage 1: the fine-tune
+    (got_ft,) = seen["fine_tune"]
+    _assert_params_close(got_ft, j_params, "fine-tune")
+    moved = sum(not np.array_equal(_port_params(t)[k].numpy(), sd[k].numpy())
+                for t in (j_params, j_final) for k in got_ft)
     assert moved > 1.8 * len(got_ft)  # nearly every tensor took steps
 
+    # stage 2: the refit, from JAX's fine-tuned params on JAX's window 0
+    ((img, support_label),) = seen["refit"]
+    kk = min(cfg.online_adapt_step, cfg.batch_size)
+    pseudo = build_pseudo_gt(torch.tensor(j_windows[0]["probs"][-kk:]),
+                             cfg.online_adapt_min_prop, None)
+    draws.calls["refit"] = 0
+    got_refit = ev._ona_fine_tune(
+        meta, None, img, support_label,
+        torch.tensor(j_windows[0]["frames"][-kk:]), pseudo,
+        dict(_port_params(j_params)))
+    _assert_params_close(got_refit, j_final, "refit")
+
+    # stage 3: each window on JAX's params, carried boxes and draws
+    for w, jw in enumerate(j_windows):
+        draws.calls["frames"] = w
+        w_probs, b, v, _, _ = segment(
+            _port_params(jw["params"]), torch.tensor(jw["frames"]),
+            *(torch.tensor(c) for c in jw["carry"]),
+            draws(None, "frames", len(jw["frames"]), None))
+        np.testing.assert_array_equal(v.numpy(), jw["valid"])
+        np.testing.assert_allclose(b.numpy(), jw["boxes"], atol=1e-2)
+        np.testing.assert_allclose(w_probs.numpy(), jw["probs"], atol=1e-3)
+        assert np.abs(w_probs.numpy() - jw["probs"]).mean() < 1e-5
+
+    # end to end, on the port's own params: within the reference's spread
     got_boxes = np.concatenate([o[1].numpy() for o in seen["windows"]])
     got_valid = np.concatenate([o[2].numpy() for o in seen["windows"]])
-    np.testing.assert_array_equal(got_valid, np.concatenate(j_valid))
-    np.testing.assert_allclose(got_boxes, np.concatenate(j_boxes), atol=5e-2)
+    np.testing.assert_array_equal(got_valid, j_valid)
+    np.testing.assert_allclose(got_boxes, j_boxes, atol=box_spread + 1e-2)
     # frames without a detection (the previous boxes carry on) and with one
     assert 0 < got_valid.sum() < len(got_valid)
 
     probs = probs.numpy()
     assert probs.shape == (T, SIZE, SIZE)
-    np.testing.assert_allclose(probs, j_probs, atol=1e-2)
-    assert np.abs(probs - j_probs).mean() < 1e-5
+    np.testing.assert_array_equal(probs[0], j_probs[0])
+    np.testing.assert_allclose(probs, j_probs, atol=prob_spread + 1e-3)
     assert 0.0 < (j_probs[1:] >= 0.5).mean() < 1.0

@@ -50,6 +50,9 @@ def test_port_files_found():
                    "data/splits.py", "data/synthetic_disk.py",
                    "utils/png.py", "utils/visualize.py"):
         assert f"e_osvos_torch/{module}" in names, module
+    for module in ("engine/parent_trainer.py", "cli/train_parent.py",
+                   "data/voc.py", "models/fuse.py"):
+        assert f"e_osvos_torch/{module}" in names, module
     for source in ("group_norm.cu", "nms.cu"):
         assert (ROOT / "e_osvos_torch" / "csrc" / source).exists()
 

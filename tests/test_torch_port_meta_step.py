@@ -54,6 +54,7 @@ from e_osvos_torch.models.jax_weights import (
 from e_osvos_torch.parallel import (
     MetaStepConfig,
     OuterOptimConfig,
+    TaskDraws,
     make_meta_step,
     make_outer_optimizer,
 )
@@ -200,15 +201,15 @@ def jax_draws_for(step_cfg, jcfg):
     from the task's seed (``PRNGKey(seed)`` split per inner step and per
     support copy, or the per-task key ``fold_in(key, 0x7A)``)."""
 
-    def task_draws(seed, num_queries):
+    def task_draws(seed, num_queries, hw=None):
         key = jax.random.PRNGKey(np.uint32(seed))
         if step_cfg.frame_transform_per_task:
-            return jax_task_draws(jax.random.fold_in(key, 0x7A), jcfg,
-                                  1 + num_queries)
-        return _stack([
+            return TaskDraws(jax_task_draws(jax.random.fold_in(key, 0x7A),
+                                            jcfg, 1 + num_queries))
+        return TaskDraws(_stack([
             _stack([jax_frame_draws(kb, jcfg) for kb in
                     jax.random.split(k, step_cfg.train_batch_size)])
-            for k in jax.random.split(key, step_cfg.num_epochs)])
+            for k in jax.random.split(key, step_cfg.num_epochs)]))
 
     return task_draws
 
