@@ -10,8 +10,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   3. kernels: each kernel against its plain PyTorch twin on the card. The
      GroupNorm passes (statistics with their group algebra, apply, dx) in
      bf16 at the DeepLab decoder's shapes [3|4|5, 120*214, 256], at the
-     Mask R-CNN backbone's GroupNorm-32 shapes (C = 64 at 102480 rows to
-     C = 2048 at 405 rows) and at edge shapes; greedy NMS (K3) at the
+     object-stacked widths of the batched evaluation ([3|4|5, 120*214, 512],
+     [3, 120*214, 96], [5, 120*214, 1280]), at the Mask R-CNN backbone's
+     GroupNorm-32 shapes (C = 64 at 102480 rows to C = 2048 at 405 rows)
+     and at edge shapes; greedy NMS (K3) at the
      detection path's (N = 512, max_out = 1), the greedy RPN's (4336, 512), the
      kernel's largest N = 16384, a ragged N, an all-invalid input, exact
      score ties, -0.0/+0.0 ties, NaN coordinates and IoUs exactly at the
@@ -30,11 +32,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      the configuration implies;
   5. DeepLab multi-object sequence: the same model and evaluator on a
      2-object 67-frame 480x854 sequence (scripts/bench_multiobj.py's
-     configuration) through ``OneShotEvaluator.eval_sequence``: the objects
-     in turn, then the merge and the J/F scoring on the card, with the
-     sequence's fps, per-object phase times, J/F per object and peak
-     memory; the launch counts must be twice the single-object ones, and
-     the card's J/F must equal the CPU's scoring of the same merged map;
+     configuration) through ``OneShotEvaluator.eval_sequence``, the objects
+     batched (the default: one object-stacked model) and in turn
+     (``batch_objects=False``), twice each in turns, each with the merge
+     and the J/F scoring on the card: fps, phase times, J/F per object and
+     peak memory; the launch counts must be the single-object ones batched
+     and twice them in turn, and the card's J/F must equal the CPU's
+     scoring of the same merged map;
   6. DeepLab host window loop: the same model through an evaluator with
      the default fused_ona=False on a 1-object 67-frame 480x854 sequence
      through ``eval_sequence``, with its fps and phase times; launch counts
@@ -43,9 +47,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      and input, on the card and on the CPU (the kernels' plain twins), must
      agree;
   8. DeepLab evaluation reference: ``eval_sequence`` of a 2-object sequence
-     on the same small model (the host window loop), on the card and on the
-     CPU, must agree in probability and J/F; on the card, ``eval_stream``
-     over two sequences must give ``eval_sequence``'s merged maps;
+     on the same small model (the host window loop), objects batched on the
+     card and on the CPU and in turn on the card, must agree in probability
+     and J/F; on the card, ``eval_stream`` over two sequences must give
+     ``eval_sequence``'s merged maps;
   9. detection main path: Mask R-CNN e-OSVOS-50-OnA one-shot tracking
      (scripts/bench_detection_ona.py's configuration, one detection per
      frame) with a full-width resnet50 GroupNorm-32 FPN Mask R-CNN in bf16
@@ -66,9 +71,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      ``save_checkpoint``, then ``e_osvos_torch.cli.evaluate.main`` with
      DAVIS-2017 e-OSVOS-OnA at phase 4's settings, palette PNGs and init_J:
      two eval_seq records with J and F in [0, 1], one PNG a frame with the
-     sequence's object ids, launch counts of three single-group sequences
-     plus the init_J forwards; each sequence's fps and peak memory beside
-     the card's name and power limit, and the decoder that ran;
+     sequence's object ids, launch counts of two single-group sequences
+     (the 2-object one batched) plus the init_J forwards; each sequence's
+     fps and peak memory beside the card's name and power limit, and the
+     decoder that ran;
+ 11b. CLI evaluation, reference checkpoints, on disk: a full-width parent
+     ``.pth`` in the reference's key vocabulary (BatchNorm statistics
+     drawn from a seed) and a ``.model`` meta checkpoint with NEURON lrs,
+     written by ``models/torch_import.py`` from the seeded weights; the
+     command line's loaders must give the same tensors on the card and on
+     the CPU bit for bit; then ``cli.evaluate.main`` from them on the
+     2-object sequence alone (objects batched), checked as phase 11;
  12. CLI evaluation, Mask R-CNN, on disk: the same with phase 9's
      configuration on the 1-object sequence (a split file written into the
      tree), launch counts of one sequence plus init_J's tracking;
@@ -174,6 +187,12 @@ GN_META_SHAPES = [(3, 120 * 120, GN_C, 16), (1, 120 * 120, 48, 16),
                   (1, 30 * 30, GN_C, 16)]
 GN_BACKBONE_SHAPES = [(3, 240 * 427, 64, 32), (3, 15 * 27, 2048, 32),
                       (1, 30 * 54, 1024, 32), (4, 60 * 107, 512, 32)]
+# objects as a batch axis (models/stacked.py): O objects' GN-16 norms as one
+# norm of O*C channels and O*16 groups; 2 objects' decoder in the fine-tune,
+# refit and window (batch 3, 4, 5) and low-level norm, 5 objects' window
+GN_STACKED_SHAPES = [(3, GN_M, 2 * GN_C, 32), (4, GN_M, 2 * GN_C, 32),
+                     (5, GN_M, 2 * GN_C, 32), (3, GN_M, 2 * 48, 32),
+                     (5, GN_M, 5 * GN_C, 80)]
 
 
 def worst_ratio(got, want, tol, floor):
@@ -202,11 +221,13 @@ def check_gn_kernels(peaks):
         t = torch.randn(*shape, generator=gen) * scale + shift
         return t.to(dev, dtype)
 
-    # (N, M, C, groups): DeepLab batches, the meta-training decoder at
-    # 480x480 (support batch 3 or 1) and ASPP, the Mask R-CNN backbone, then
-    # the edge shapes (C = 36 is not a multiple of 8: the scalar variant)
+    # (N, M, C, groups): DeepLab batches, the object-stacked decoder and
+    # low-level norm of the 2-object batched evaluation and the 5-object
+    # window, the meta-training decoder at 480x480 (support batch 3 or 1) and
+    # ASPP, the Mask R-CNN backbone, then the edge shapes (C = 36 is not a
+    # multiple of 8: the scalar variant)
     shapes = [(3, GN_M, GN_C, 16), (4, GN_M, GN_C, 16), (5, GN_M, GN_C, 16),
-              *GN_META_SHAPES, *GN_BACKBONE_SHAPES,
+              *GN_STACKED_SHAPES, *GN_META_SHAPES, *GN_BACKBONE_SHAPES,
               (3, GN_M, 48, 16), (3, 1, GN_C, 16), (2, 1000, GN_C, 16),
               (1, 777, 48, 16), (1, 30 * 54, GN_C, 16), (2, 1000, 36, 4)]
     # Tolerances. The statistics are f32 sums over bf16 inputs, taken in
@@ -274,6 +295,11 @@ def check_gn_kernels(peaks):
     # ---- times at the DeepLab fine-tune shape [3, 25680, 256] (the kernels
     # line) and at the Mask R-CNN stem's [3, 102480, 64] ----
     records = time_gn_kernels(peaks, 3, GN_M, GN_C, 16)
+    stacked = time_gn_kernels(peaks, 3, GN_M, 2 * GN_C, 32)
+    log("gn kernels at the 2-object stacked decoder [3, 25680, 512] bf16 "
+        + json.dumps({k: {f: v[f] for f in ("ms", "eager_ms", "plain_ms",
+                                             "bound_ms", "library_ms")}
+                      for k, v in stacked.items()}))
     stem = time_gn_kernels(peaks, 3, 240 * 427, 64, 32)
     log("gn kernels at the Mask R-CNN stem [3, 102480, 64] bf16 " + json.dumps(
         {k: {f: v[f] for f in ("ms", "eager_ms", "plain_ms", "bound_ms",
@@ -794,28 +820,20 @@ def run_main_path(shared):
 
 
 MULTI_OBJECTS = 2  # scripts/bench_multiobj.py:37
+MULTI_RUNS = 2  # batched and looped runs each, in turns
 
 
-def run_multi_object(shared):
-    """A 2-object 67-frame 480x854 sequence through ``eval_sequence`` on the
-    main path's model and evaluator (warm from its sequences, same
-    shapes): the objects in turn, the merge and the J/F scoring on the
-    card. Its wall time runs from the call to the result dict on the host
-    (frames loaded and uploaded, probabilities and merged map fetched)."""
-    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
-    from e_osvos_torch.engine import build_gt_stack
+def multi_object_run(evaluator, meta_params, index, n_gn, batched: bool):
+    """One ``eval_sequence`` of the 2-object sequence, objects batched or in
+    turn (the evaluator's ``batch_objects``); its wall time runs from the
+    call to the result dict on the host (frames loaded and uploaded,
+    probabilities and merged map fetched). Returns (result, seconds, peak
+    GiB, launch counts, phase seconds on the device's timeline). The launch
+    counts must be the single-object ones batched (one GroupNorm call
+    serves every object) and ``MULTI_OBJECTS`` times them in turn."""
     from e_osvos_torch.ops import cuda_group_norm as K
     from e_osvos_torch.ops import cuda_nms
-    from e_osvos_torch.ops import metrics
 
-    H, W = MAIN_HW
-    meta_params, evaluator, n_gn = shared["deeplab"]
-    index = SyntheticVOSIndex(num_sequences=1, num_frames=MAIN_T,
-                              size=MAIN_HW, num_objects=MULTI_OBJECTS,
-                              multi_object="single_id", seed=0)
-    seq = index.sequences["seq00"]
-    if len(seq.object_groups) != MULTI_OBJECTS:
-        raise AssertionError(f"{len(seq.object_groups)} object groups")
     events = []
 
     def mark(phase):
@@ -836,30 +854,32 @@ def run_multi_object(shared):
     peak = torch.cuda.max_memory_allocated() / 2**30
     counts = {**K.launch_counts(), **cuda_nms.launch_counts()}
     one = expected_launches(evaluator.cfg, MAIN_T, n_gn, K.LAUNCHES_PER_CALL)
-    want = {**{k: MULTI_OBJECTS * v for k, v in one.items()},
+    times = 1 if batched else MULTI_OBJECTS
+    want = {**{k: times * v for k, v in one.items()},
             "greedy_nms": 0, "greedy_nms_s": 0, "greedy_nms_l": 0}
-    # phase seconds on the device's timeline, object by object
     names = [p for p, _ in events]
-    if names != ["start"] + ["fine_tune", "propagate"] * MULTI_OBJECTS + [
-            "score"]:
+    if names != ["start"] + ["fine_tune", "propagate"] * times + ["score"]:
         raise AssertionError(f"phases {names}")
     spans = [(b[0], a[1].elapsed_time(b[1]) / 1e3)
              for a, b in zip(events, events[1:])]
-    per_object = [dict(spans[2 * o:2 * o + 2]) for o in range(MULTI_OBJECTS)]
-    log(f"multi-object sequence ({MULTI_OBJECTS} objects, {MAIN_T} frames at "
-        f"{H}x{W}, eval_sequence incl. loading, scoring and fetch): "
-        f"{dt:.3f} s, {MAIN_T / dt:.4f} fps; peak memory {peak:.2f} GiB")
-    log("multi-object phases (device timeline, seconds) " + json.dumps(
-        {"per_object": per_object, "score_s": spans[-1][1]}))
-    log("multi-object J per object " + json.dumps(res["J_per_object"])
-        + ", F per object " + json.dumps(res["F_per_object"]))
-    log("multi-object launch counts " + json.dumps(counts) + " expected "
-        + json.dumps(want) + f" ({MULTI_OBJECTS} x the single-object counts)")
+    phases = {"groups": [dict(spans[2 * o:2 * o + 2]) for o in range(times)],
+              "score_s": spans[-1][1]}
+    tag = "batched" if batched else "in turn"
+    log(f"multi-object sequence, objects {tag} ({MULTI_OBJECTS} objects, "
+        f"{MAIN_T} frames at {MAIN_HW[0]}x{MAIN_HW[1]}, eval_sequence incl. "
+        f"loading, scoring and fetch): {dt:.3f} s, {MAIN_T / dt:.4f} fps; "
+        f"peak memory {peak:.2f} GiB; phases (device timeline, seconds) "
+        + json.dumps(phases) + "; J per object "
+        + json.dumps(res["J_per_object"]) + ", F per object "
+        + json.dumps(res["F_per_object"]))
+    log(f"multi-object launch counts ({tag}) " + json.dumps(counts)
+        + " expected " + json.dumps(want) + f" ({times} x the single-object "
+        "counts)")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     probs, merged = res["probs"], res["merged"]
-    if (probs.shape != (MULTI_OBJECTS, MAIN_T, H, W)
-            or merged.shape != (MAIN_T, H, W) or merged.dtype != np.uint8):
+    if (probs.shape != (MULTI_OBJECTS, MAIN_T) + MAIN_HW
+            or merged.shape != (MAIN_T,) + MAIN_HW or merged.dtype != np.uint8):
         raise AssertionError(f"output shapes {probs.shape}, {merged.shape} "
                              f"{merged.dtype}")
     if not np.isfinite(probs).all():
@@ -867,8 +887,61 @@ def run_multi_object(shared):
     scores = res["J_per_object"] + res["F_per_object"]
     if len(scores) != 2 * MULTI_OBJECTS or not np.isfinite(scores).all():
         raise AssertionError(f"J/F per object {scores}")
+    return res, dt, peak, counts
+
+
+def run_multi_object(shared):
+    """A 2-object 67-frame 480x854 sequence through ``eval_sequence`` on the
+    main path's model and evaluator (warm from its sequences, same shapes),
+    the objects batched (the default, one object-stacked model) and in turn
+    (``batch_objects=False``), ``MULTI_RUNS`` times each in turns, batched
+    first; then the card's J/F scoring against the CPU's on the batched
+    run's merged map."""
+    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
+    from e_osvos_torch.engine import OneShotEvaluator, build_gt_stack
+    from e_osvos_torch.ops import metrics
+
+    meta_params, batched_ev, n_gn = shared["deeplab"]
+    loop_ev = OneShotEvaluator(batched_ev.model_apply, batched_ev.meta_cfg,
+                               batched_ev.cfg, device="cuda", fused_ona=True,
+                               batch_objects=False)
+    if not batched_ev.batch_objects or not batched_ev.fused_ona:
+        raise AssertionError("the main path's evaluator is not the default "
+                             "batched, fused one")
+    index = SyntheticVOSIndex(num_sequences=1, num_frames=MAIN_T,
+                              size=MAIN_HW, num_objects=MULTI_OBJECTS,
+                              multi_object="single_id", seed=0)
+    seq = index.sequences["seq00"]
+    if len(seq.object_groups) != MULTI_OBJECTS:
+        raise AssertionError(f"{len(seq.object_groups)} object groups")
+    runs = {True: [], False: []}
+    total = {}
+    for _ in range(MULTI_RUNS):
+        for batched in (True, False):
+            res, dt, peak, counts = multi_object_run(
+                batched_ev if batched else loop_ev, meta_params, index, n_gn,
+                batched)
+            runs[batched].append((res, dt, peak))
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    for batched in (True, False):
+        fps = [MAIN_T / dt for _, dt, _ in runs[batched]]
+        log(f"multi-object summary, objects "
+            f"{'batched' if batched else 'in turn'}: fps {json.dumps(fps)}, "
+            f"peak GiB {json.dumps([pk for _, _, pk in runs[batched]])} on "
+            f"{smi.strip()}")
+    diff = float(np.abs(runs[True][0][0]["probs"]
+                        - runs[False][0][0]["probs"]).max())
+    log(f"multi-object full width, bf16: batched vs in turn max |dprob| "
+        f"{diff:.3e} (reported, not held: 50 bf16 steps of a random-weight "
+        f"model; the small fp32 reference holds them)")
 
     # the card's scoring against the CPU's, on the same merged map and GT
+    res = runs[True][0][0]
+    merged, scores = res["merged"], res["J_per_object"] + res["F_per_object"]
     gt_stack, has_gt, ids = build_gt_stack(index, "seq00", seq, MAIN_T,
                                            MAIN_HW)
     host = (torch.from_numpy(merged.astype(np.int32)),
@@ -890,7 +963,7 @@ def run_multi_object(shared):
         f"of the means {err_means:.3e} (tol 1e-6)")
     if not (err <= 1e-6 and err_means <= 1e-6):
         raise AssertionError(f"card and CPU J/F disagree: {err}, {err_means}")
-    return counts
+    return total
 
 
 def run_host_loop(shared):
@@ -1002,10 +1075,11 @@ def check_reference():
 
 def check_eval_reference():
     """``eval_sequence`` of a 2-object 7-frame 32x48 sequence on the small
-    fp32 model (objects in turn, the host window loop) on the card and on
-    the CPU: probabilities and J/F within 1e-3. Then, on the card,
-    ``eval_stream`` over two sequences against ``eval_sequence`` with the
-    seeds ``fold_in(seed, i)`` (the fused loop): identical merged maps."""
+    fp32 model (the host window loop), the objects batched (the default) on
+    the card and on the CPU, and in turn on the card: probabilities and J/F
+    within 1e-3 of each other. Then, on the card, ``eval_stream`` over two
+    sequences against ``eval_sequence`` with the seeds ``fold_in(seed, i)``
+    (the fused loop, objects batched): identical merged maps."""
     from e_osvos_torch.data.synthetic import SyntheticVOSIndex
     from e_osvos_torch.engine import OneShotEvaluator, fold_in
     from e_osvos_torch.meta_optim import init_meta_params
@@ -1023,19 +1097,30 @@ def check_eval_reference():
                          init_meta_params(meta_cfg, model))
         ev = OneShotEvaluator(built[device][0], meta_cfg, cfg, device=device)
         res[device] = ev.eval_sequence(index, "seq00", built[device][1], 0)
-    err = float(np.abs(res["cpu"]["probs"] - res["cuda"]["probs"]).max())
-    err_jf = max(abs(a - b) for k in ("J_per_object", "F_per_object")
-                 for a, b in zip(res["cpu"][k], res["cuda"][k]))
-    log(f"small fp32 eval_sequence (2 objects, host window loop), card vs "
-        f"CPU: max |dprob| = {err:.3e}, max |dJ|, |dF| = {err_jf:.3e} (tol "
-        f"1e-3); J per object on the card {res['cuda']['J_per_object']}")
+    apply, meta_params = built["cuda"]
+    res["loop"] = OneShotEvaluator(apply, meta_cfg, cfg, device="cuda",
+                                   batch_objects=False).eval_sequence(
+        index, "seq00", meta_params, 0)
+
+    def gap(a, b):
+        return (float(np.abs(res[a]["probs"] - res[b]["probs"]).max()),
+                max(abs(x - y) for k in ("J_per_object", "F_per_object")
+                    for x, y in zip(res[a][k], res[b][k])))
+
+    cpu_err, cpu_jf = gap("cpu", "cuda")
+    loop_err, loop_jf = gap("loop", "cuda")
+    log(f"small fp32 eval_sequence (2 objects, host window loop), objects "
+        f"batched, card vs CPU: max |dprob| = {cpu_err:.3e}, max |dJ|, |dF| "
+        f"= {cpu_jf:.3e}; on the card, batched vs in turn: {loop_err:.3e}, "
+        f"{loop_jf:.3e} (tol 1e-3); J per object on the card "
+        f"{res['cuda']['J_per_object']}")
     if res["cuda"]["probs"].shape != (2, 7, 32, 48):
         raise AssertionError(f"probs shape {res['cuda']['probs'].shape}")
-    if not (err <= 1e-3 and err_jf <= 1e-3):
-        raise AssertionError(f"card and CPU disagree on eval_sequence: "
-                             f"{err}, {err_jf}")
+    if not max(cpu_err, cpu_jf, loop_err, loop_jf) <= 1e-3:
+        raise AssertionError(
+            f"eval_sequence disagrees: card vs CPU {cpu_err}, {cpu_jf}; "
+            f"batched vs in turn {loop_err}, {loop_jf}")
 
-    apply, meta_params = built["cuda"]
     ev = OneShotEvaluator(apply, meta_cfg, cfg, device="cuda", fused_ona=True)
     names = ["seq00", "seq01"]
     masks = ev.eval_stream(index, names, meta_params, 5)
@@ -2337,8 +2422,9 @@ def run_cli_deeplab(shared):
     DAVIS-2017 e-OSVOS-OnA at bench.py's settings (resnet50 os16 frozen-BN
     backbone, GN-16 head, bf16, 50 steps, OnA every 5 frames for 10 steps at
     min_prop 0.75, the fused loop without window bucketing), palette PNGs
-    and init_J: K1/K2 launches of three single-group sequences plus one
-    init_J forward of each sequence."""
+    and init_J: K1/K2 launches of two single-group sequences (the 2-object
+    sequence runs its objects batched) plus one init_J forward of each
+    sequence."""
     from e_osvos_torch import config
     from e_osvos_torch.ops import cuda_group_norm as K
 
@@ -2354,10 +2440,128 @@ def run_cli_deeplab(shared):
                             K.LAUNCHES_PER_CALL)
     init = {k: n_gn * K.LAUNCHES_PER_CALL[k]
             for k in ("group_stats", "affine_apply")}
-    per_seq = {name: {k: n * one[k] + init.get(k, 0) for k in one}
-               for name, n in CLI_SEQS.items()}
+    per_seq = {name: {k: one[k] + init.get(k, 0) for k in one}
+               for name in CLI_SEQS}
     check_cli_output("CLI evaluation, DeepLab", records, out, CLI_SEQS,
                      per_seq, counts)
+    return counts
+
+
+REFERENCE_SEQ = "crossing"  # build_480p_tree's 2-object val sequence
+
+
+def write_reference_checkpoints(cfg, out: str, seed: int):
+    """A full-width DeepLabV3+ parent ``.pth`` in the reference's key
+    vocabulary, its frozen BNs as BatchNorms with running statistics drawn
+    from ``seed``, and a ``.model`` meta checkpoint with NEURON lrs drawn
+    from ``seed``, both from the port's seeded model on the CPU
+    (``models/torch_import.py``'s writers). Returns their paths."""
+    from e_osvos_torch import config
+    from e_osvos_torch.cli.common import build_parent_model
+    from e_osvos_torch.meta_optim import init_meta_params
+    from e_osvos_torch.models.torch_import import (
+        reference_meta_checkpoint,
+        reference_state_dict,
+    )
+
+    model = build_parent_model(dict(cfg, device="cpu"))
+    buffers = [n for n, _ in model.named_buffers()]
+    pth, meta_file = (os.path.join(out, "parent.pth"),
+                      os.path.join(out, "meta.model"))
+    torch.save(reference_state_dict(model.state_dict(), "deeplab_v3plus",
+                                    buffers, seed=seed), pth)
+    mp = init_meta_params(config.to_meta_optim_config(cfg), model)
+    gen = torch.Generator().manual_seed(seed)
+    lrs = {k: v * torch.empty(v.shape).uniform_(0.5, 2.0, generator=gen)
+           for k, v in mp.log_init_lr.items()}
+    torch.save(reference_meta_checkpoint(mp._replace(log_init_lr=lrs),
+                                         "deeplab_v3plus"), meta_file)
+    return pth, meta_file
+
+
+def run_cli_reference(shared):
+    """The reference's checkpoint files through the command line: a
+    full-width parent ``.pth`` (BatchNorm statistics to fold) and a
+    ``.model`` meta checkpoint with NEURON lrs, written from seeded weights
+    (``write_reference_checkpoints``), then ``cli.evaluate.main`` with
+    phase 11's settings on the disk tree's 2-object sequence alone (a
+    split file), its objects batched. The parent and meta-parameters the
+    command line loads on the card must equal its CPU import bit for bit;
+    records, PNGs and launch counts as phase 11's (one sequence)."""
+    from e_osvos_torch import config
+    from e_osvos_torch.cli import evaluate
+    from e_osvos_torch.cli.common import (
+        build_parent_model,
+        init_model_params,
+        resolve_meta_params,
+    )
+    from e_osvos_torch.ops import cuda_group_norm as K
+    from e_osvos_torch.ops import cuda_nms
+    from e_osvos_torch.ops.group_norm import FusedGroupNorm
+
+    tag = "CLI evaluation, reference checkpoints"
+    tree = disk_tree(shared)
+    root = os.path.join(tree, "DAVIS")
+    with open(os.path.join(root, "ImageSets", "2017",
+                           f"{REFERENCE_SEQ}.txt"), "w") as f:
+        f.write(REFERENCE_SEQ + "\n")
+    out = os.path.join(tree, "reference")
+    os.makedirs(out, exist_ok=True)
+    argv = ["with", "DAVIS-2017", "e-OSVOS-OnA", f"datasets.val.root={root}",
+            f"datasets.val.split={REFERENCE_SEQ}", "num_epochs.eval=50",
+            "eval_online_adapt.min_prop=0.75", "eval_ona_window_bucket=0",
+            "eval_fused_ona=True"]
+    t0 = time.perf_counter()
+    pth, meta_file = write_reference_checkpoints(config.parse_cli(argv), out,
+                                                 seed=7)
+    log(f"{tag}: wrote {os.path.basename(pth)} "
+        f"({os.path.getsize(pth) / 2**20:.1f} MiB) and "
+        f"{os.path.basename(meta_file)} "
+        f"({os.path.getsize(meta_file) / 2**20:.1f} MiB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    argv += [f"parent_model.checkpoint={pth}",
+             f"meta_optim_model_file={meta_file}", f"save_dir={out}",
+             f"save_preds={os.path.join(out, 'preds')}", "eval_init_j=True"]
+
+    # what the command line loads, on the card and on the CPU
+    loaded = {}
+    for device in ("cpu", "cuda"):
+        cfg = config.parse_cli(argv + [f"device={device}"])
+        model = init_model_params(cfg, build_parent_model(cfg))
+        meta = resolve_meta_params(cfg, model)
+        n_gn = sum(isinstance(m, FusedGroupNorm) and m.use_kernel
+                   for m in model.modules())
+        loaded[device] = (
+            {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            {f"{field}.{k}": v.detach().cpu() for field in meta._fields
+             for k, v in (getattr(meta, field) or {}).items()})
+        del model, meta
+    differ = [k for i in (0, 1) for k, v in loaded["cpu"][i].items()
+              if not torch.equal(v, loaded["cuda"][i][k])]
+    sizes = [len(loaded["cpu"][i]) for i in (0, 1)]
+    log(f"{tag}: {sizes[0]} parent tensors and {sizes[1]} meta-parameter "
+        f"tensors loaded on the card, {len(differ)} differ from the CPU "
+        f"import bit for bit")
+    if differ or loaded["cuda"][0].keys() != loaded["cpu"][0].keys():
+        raise AssertionError(f"{tag}: card and CPU imports differ: "
+                             f"{differ[:8]}")
+    del loaded
+
+    K.reset_launch_counts()
+    cuda_nms.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = evaluate.main(argv)
+    torch.cuda.synchronize()
+    log(f"{tag}: cli.evaluate.main {time.perf_counter() - t0:.3f} s")
+    counts = {**K.launch_counts(), **cuda_nms.launch_counts()}
+    cfg = config.parse_cli(argv)
+    one = expected_launches(config.to_one_shot_config(cfg), MAIN_T, n_gn,
+                            K.LAUNCHES_PER_CALL)
+    for k in ("group_stats", "affine_apply"):  # init_J's forward
+        one[k] += n_gn * K.LAUNCHES_PER_CALL[k]
+    check_cli_output(tag, records, out, {REFERENCE_SEQ: 2},
+                     {REFERENCE_SEQ: one}, counts)
     return counts
 
 
@@ -2479,6 +2683,8 @@ def main() -> int:
               ("DeepLab evaluation reference", check_eval_reference),
               ("CLI evaluation, DeepLab, on disk",
                lambda: run_cli_deeplab(shared)),
+              ("CLI evaluation, reference checkpoints, on disk",
+               lambda: run_cli_reference(shared)),
               ("meta-training", lambda: run_meta_training(shared)),
               ("meta-training reference", check_meta_reference),
               ("detection main path", run_detection_path),

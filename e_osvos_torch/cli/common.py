@@ -6,8 +6,10 @@ Checkpoints: a parent is a flax msgpack file of the JAX package's
 ``state_dict`` written by ``torch.save``; ``parent_model.checkpoint``,
 ``parent_model.<role>.paths``); meta-parameters come from a JAX meta checkpoint ``{"meta_params",
 "opt_state"}`` (msgpack) or from the port's own ``MetaTrainer.save``
-(``torch.save``). The reference's ``.pth``/``.pt``/``.model`` files need the
-BN-folding importer, which is not ported.
+(``torch.save``). The reference's ``.pth``/``.pt`` parents and ``.model``
+meta checkpoints go through ``models/torch_import.py``: a name-mapped import
+(BatchNorm statistics folded) when the key vocabulary names a reference
+model family, the reference's shape-matched copy otherwise.
 """
 
 from __future__ import annotations
@@ -33,6 +35,13 @@ from e_osvos_torch.models.jax_weights import (
     lr_tree_from_jax,
     state_dict_from_jax,
 )
+from e_osvos_torch.models.torch_import import (
+    detect_torch_architecture,
+    import_meta_checkpoint_from_torch,
+    load_mapped_from_torch,
+    load_torch_file,
+    shape_matched_load,
+)
 from e_osvos_torch.utils import load_checkpoint, resolve_device
 from e_osvos_torch.utils.checkpoint import (
     is_torch_checkpoint,
@@ -41,13 +50,6 @@ from e_osvos_torch.utils.checkpoint import (
 
 TORCH_FILES = (".pth", ".pt", ".model")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _no_torch_import(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path}: reference PyTorch checkpoints need the BN-folding importer "
-        "(models/torch_import.py), which is not ported yet (ROADMAP B2, "
-        "torch_import); convert it with the JAX package first")
 
 
 def build_parent_model(cfg: Dict) -> nn.Module:
@@ -114,7 +116,7 @@ def _parent_state(path: str, model: nn.Module) -> Dict[str, torch.Tensor]:
     """One parent checkpoint as the model's full ``state_dict`` (parameters
     and frozen-BN buffers) on the model's device."""
     if path.endswith(TORCH_FILES):
-        raise _no_torch_import(path)
+        return _reference_parent_state(path, model)
     if is_torch_checkpoint(path):  # cli.train_parent
         state = load_checkpoint(path)[0]
     else:
@@ -125,6 +127,22 @@ def _parent_state(path: str, model: nn.Module) -> Dict[str, torch.Tensor]:
             f"{path}: checkpoint and model differ in "
             f"{sorted(set(state) ^ set(want))[:8]}")
     return {k: v.to(want[k].device) for k, v in state.items()}
+
+
+def _reference_parent_state(path: str, model: nn.Module
+                            ) -> Dict[str, torch.Tensor]:
+    """A reference ``.pth``/``.pt`` parent over the model's own state: the
+    name-mapped import where the keys name a reference model family,
+    the shape-matched copy otherwise; entries it does not fill keep the
+    model's values."""
+    sd = load_torch_file(path)
+    template = model.state_dict()
+    if detect_torch_architecture(sd) != "unknown":
+        state, _ = load_mapped_from_torch(template, sd)
+    else:
+        state, _ = shape_matched_load(
+            template, sd, buffers=[n for n, _ in model.named_buffers()])
+    return {k: v.to(template[k].device) for k, v in state.items()}
 
 
 def init_model_params(cfg: Dict, model: nn.Module) -> nn.Module:
@@ -229,9 +247,10 @@ def meta_params_from_flax(tree: Mapping) -> MetaParams:
         log_init_lr=lr_tree_from_jax(tree["log_init_lr"]))
 
 
-def _read_meta_params(path: str) -> MetaParams:
-    if path.endswith(TORCH_FILES):
-        raise _no_torch_import(path)
+def _read_meta_params(path: str, template: MetaParams) -> MetaParams:
+    if path.endswith(TORCH_FILES):  # a reference meta checkpoint
+        return import_meta_checkpoint_from_torch(
+            template, load_torch_file(path))[0]
     if is_torch_checkpoint(path):  # MetaTrainer.save
         state, _ = load_checkpoint(path)
         return MetaParams(**state["meta_params"])
@@ -258,7 +277,7 @@ def resolve_meta_params(cfg: Dict, model: nn.Module) -> MetaParams:
     path = explicit or cfg.get("resume")
     if not path or not os.path.exists(path):
         return mp
-    loaded = _read_meta_params(path)
+    loaded = _read_meta_params(path, mp)
     _check_keys(path, loaded, mp)
     device = next(model.parameters()).device
     return MetaParams(*(None if d is None else

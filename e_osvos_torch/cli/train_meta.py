@@ -15,8 +15,10 @@ device, logs to ``<save_dir>[/<env_suffix>]/metrics.jsonl`` and checkpoints
 ``last_meta_iter.ckpt`` (``best_meta_iter.ckpt`` on the best interleaved
 evaluation, every ``eval_interval`` iterations over the first
 ``datasets.val`` index). ``meta_optim_model_file`` starts from saved
-meta-parameters; ``resume`` continues a run of the port, outer optimizer
-state included.
+meta-parameters (the port's, the JAX package's or a reference ``.model``);
+``resume`` continues a run of the port, outer optimizer state included, or
+starts from a reference ``.model``'s meta-parameters with a fresh outer
+optimizer.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from e_osvos_torch import config as cfglib
 from e_osvos_torch.cli.common import (
+    TORCH_FILES,
     build_indexes,
     build_parent_model,
     init_model_params,
@@ -78,7 +81,11 @@ def main(argv=None) -> MetaTrainer:
         save_dir = os.path.join(save_dir, str(cfg["env_suffix"]))
     cfg["save_dir"] = save_dir
     resume = cfg.get("resume")
-    if resume and os.path.exists(resume) and not is_torch_checkpoint(resume):
+    # a reference ``.model`` carries meta-parameters and no outer optimizer
+    # state of the port: it seeds the meta-parameters, the optimizer starts
+    reference = bool(resume) and str(resume).endswith(TORCH_FILES)
+    if (resume and os.path.exists(resume) and not reference
+            and not is_torch_checkpoint(resume)):
         raise NotImplementedError(
             f"resume={resume!r} is not a checkpoint of the port: the JAX "
             "package's outer optimizer state does not carry over; pass it as "
@@ -110,10 +117,10 @@ def main(argv=None) -> MetaTrainer:
     # is read once, by ``trainer.restore``
     with torch.no_grad():
         for mine, loaded in zip(trainer.meta_params, resolve_meta_params(
-                dict(cfg, resume=None), model)):
+                cfg if reference else dict(cfg, resume=None), model)):
             for k, v in (mine or {}).items():
                 v.copy_(loaded[k])
-    if resume and os.path.exists(resume):
+    if resume and os.path.exists(resume) and not reference:
         trainer.restore(resume)
     try:
         trainer.run()

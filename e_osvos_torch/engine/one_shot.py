@@ -16,11 +16,19 @@ the fused formulation (``propagate_windows``, ``fused_ona=True``) pads the
 tail window by replicating the last real frame and refits before every
 window but the last real one. The probabilities agree to rounding.
 
-Objects run in turn, each through the single-group fine-tune and window
-loop; the JAX package's ``batch_objects`` (objects as a ``vmap`` axis) has
-no counterpart yet. Object i draws from the seed ``fold_in(seed, i)``, the
+Objects are a batch axis (``batch_objects=True``, the default, as in the
+JAX package): the object groups of a sequence that share a support frame
+are fine-tuned, segmented and refit together by an object-stacked model
+(``models/stacked.py``: the objects folded into the channel axis), one loss
+an object, summed. Otherwise, and with ``batch_objects=False``, they run in
+turn. Object i draws from the seed ``fold_in(seed, i)`` either way, the
 schedule of the JAX package's ``jax.random.fold_in(key, i)``, on a CPU
-generator, so the draws are the same whatever the device.
+generator, so the draws are the same whatever the device and the batched
+result is the loop's to rounding.
+
+Functions that take one object's label ``[H, W]`` take the stacked
+objects' ``[O, H, W]`` (with a stacked model apply, meta-parameters and
+params, and one generator an object) and give ``[O, ...]`` results.
 
 Public layouts are the JAX ones: frames ``[T, H, W, 3]`` raw 0..255, labels
 ``[H, W]`` in {0, 1, 255}, probabilities ``[T, H, W]`` (``[O, T, H, W]`` for
@@ -31,7 +39,7 @@ packed masks uint8 ``[T, H, ceil(W/8)]``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +48,11 @@ from e_osvos_torch.data import transforms
 from e_osvos_torch.data.datasets import binarize_label
 from e_osvos_torch.data.loader import load_frames
 from e_osvos_torch.meta_optim import MetaOptimConfig, MetaParams, fine_tune
+from e_osvos_torch.models.stacked import (
+    object_stacked_apply,
+    stack_lrs,
+    stack_objects,
+)
 from e_osvos_torch.ops import losses as loss_ops
 from e_osvos_torch.ops import metrics as metric_ops
 from e_osvos_torch.ops.bits import pack_mask_bits, unpack_mask_bits
@@ -83,23 +96,39 @@ def _generator(seed: int) -> torch.Generator:
 
 
 def _loss_on(model_apply, cfg, params, imgs, labels):
+    """The loss of ``imgs`` against ``labels [B, H, W]``; with stacked
+    objects (``labels [O, B, H, W]``) one loss an object, each over its own
+    labels and logit plane."""
     imgs = transforms.normalize(imgs, cfg.normalize_mode)
     valid = labels != 255
     gts = torch.where(valid, labels, 0).float()
-    logits = model_apply(params, imgs)[..., 0]
-    return loss_ops.compute_loss(cfg.loss_func, logits, gts, valid)
+    logits = model_apply(params, imgs)
+    if labels.dim() == 3:
+        return loss_ops.compute_loss(cfg.loss_func, logits[..., 0], gts,
+                                     valid)
+    return torch.stack([
+        loss_ops.compute_loss(cfg.loss_func, logits[..., o], gts[o],
+                              valid[o]) for o in range(labels.shape[0])])
 
 
 def make_support_loss_fn(model_apply: Callable, cfg: OneShotConfig
                          ) -> Callable:
     """``loss_fn(params, (img, label, draws))`` over one augmented support
     batch: img is the raw ``[H, W, 3]`` support frame, label its {0, 1, 255}
-    mask, draws the batch's ``AugmentDraws``."""
+    mask, draws the batch's ``AugmentDraws``; with stacked objects, labels
+    ``[O, H, W]`` and a list of each object's draws."""
 
     def loss_fn(params, batch):
         img, label, draws = batch
-        imgs, labels = transforms.augment_support_batch(
-            img.float(), label, draws, cfg.augment)
+        if label.dim() == 2:
+            imgs, labels = transforms.augment_support_batch(
+                img.float(), label, draws, cfg.augment)
+        else:
+            pairs = [transforms.augment_support_batch(
+                img.float(), lab, d, cfg.augment)
+                for lab, d in zip(label, draws)]
+            imgs = torch.stack([im for im, _ in pairs])
+            labels = torch.stack([lab for _, lab in pairs])
         return _loss_on(model_apply, cfg, params, imgs, labels)
 
     return loss_fn
@@ -109,12 +138,14 @@ def make_pseudo_gt_loss_fn(model_apply: Callable, cfg: OneShotConfig
                            ) -> Callable:
     """Online-adaptation loss over ``(support_img, support_label,
     prop_imgs [K, H, W, 3], prop_labels [K, H, W])``: the un-augmented
-    support frame plus K pseudo-GT frames (all-255 frames carry no loss)."""
+    support frame plus K pseudo-GT frames (all-255 frames carry no loss);
+    with stacked objects, labels ``[O, H, W]`` and ``[O, K, H, W]``."""
 
     def loss_fn(params, batch):
         img, label, prop_imgs, prop_labels = batch
         imgs = torch.cat([img.float()[None], prop_imgs.float()], 0)
-        labels = torch.cat([label[None].to(prop_labels.dtype), prop_labels], 0)
+        labels = torch.cat([label.unsqueeze(-3).to(prop_labels.dtype),
+                            prop_labels], -3)
         return _loss_on(model_apply, cfg, params, imgs, labels)
 
     return loss_fn
@@ -127,11 +158,20 @@ def fine_tune_on_support(model_apply: Callable, meta_cfg: MetaOptimConfig,
                          ) -> Tuple[Params, torch.Tensor]:
     """One-shot adaptation: ``num_epochs`` learned-SGD steps, each on a fresh
     augmentation batch of the support frame. All draws are taken from
-    ``generator`` up front and cross to the device once."""
-    draws = transforms.sample_augment_draws(
-        generator, cfg.augment, (cfg.num_epochs, cfg.batch_size)
-    ).to(img.device)
-    batches = [(img, label, draws.select(i)) for i in range(cfg.num_epochs)]
+    ``generator`` (stacked objects: a list, one an object) up front and
+    cross to the device once."""
+    shape = (cfg.num_epochs, cfg.batch_size)
+    if label.dim() == 2:
+        draws = transforms.sample_augment_draws(generator, cfg.augment,
+                                                shape).to(img.device)
+        batches = [(img, label, draws.select(i))
+                   for i in range(cfg.num_epochs)]
+    else:
+        draws = [transforms.sample_augment_draws(g, cfg.augment,
+                                                 shape).to(img.device)
+                 for g in generator]
+        batches = [(img, label, [d.select(i) for d in draws])
+                   for i in range(cfg.num_epochs)]
     return fine_tune(meta_cfg, make_support_loss_fn(model_apply, cfg),
                      meta_params, batches, init_params=init_params,
                      early_stop_patience=cfg.early_stop_patience)
@@ -139,11 +179,14 @@ def fine_tune_on_support(model_apply: Callable, meta_cfg: MetaOptimConfig,
 
 @torch.no_grad()
 def segment_frames(model_apply: Callable, cfg: OneShotConfig, params: Params,
-                   frames: torch.Tensor) -> torch.Tensor:
+                   frames: torch.Tensor, stacked: bool = False
+                   ) -> torch.Tensor:
     """Inference over a raw ``[T, H, W, 3]`` frame stack → ``[T, H, W]``
-    foreground probability."""
+    foreground probability (``stacked`` objects: ``[O, T, H, W]``)."""
     imgs = transforms.normalize(frames, cfg.normalize_mode)
-    return torch.sigmoid(model_apply(params, imgs)[..., 0])
+    logits = model_apply(params, imgs)
+    return torch.sigmoid(logits.movedim(-1, 0) if stacked
+                         else logits[..., 0])
 
 
 def pseudo_ignore_padding(pseudo: torch.Tensor, orig_hw) -> torch.Tensor:
@@ -160,15 +203,15 @@ def pseudo_ignore_padding(pseudo: torch.Tensor, orig_hw) -> torch.Tensor:
 
 def build_pseudo_gt(w_probs: torch.Tensor, min_prop: float, orig_hw
                     ) -> torch.Tensor:
-    """Predictions ``[K, H, W]`` → pseudo ground truth: prob ≥ min_prop → 1,
-    ≤ 1 − min_prop → 0, else 255; frames without confident foreground
-    become all-255."""
+    """Predictions ``[..., K, H, W]`` → pseudo ground truth: prob ≥
+    min_prop → 1, ≤ 1 − min_prop → 0, else 255; frames without confident
+    foreground become all-255."""
     pseudo = torch.where(
         w_probs >= min_prop, 1,
         torch.where(w_probs <= 1.0 - min_prop, 0, 255)).to(torch.int32)
     pseudo = pseudo_ignore_padding(pseudo, orig_hw)
-    has_fg = (pseudo == 1).any(dim=(1, 2))
-    return torch.where(has_fg[:, None, None], pseudo, 255)
+    has_fg = (pseudo == 1).any(dim=-1).any(dim=-1)
+    return torch.where(has_fg[..., None, None], pseudo, 255)
 
 
 def make_ona_refit_fn(model_apply: Callable, meta_cfg: MetaOptimConfig,
@@ -213,20 +256,22 @@ def propagate_windows(model_apply: Callable, meta_cfg: MetaOptimConfig,
                       ) -> Tuple[torch.Tensor, Params]:
     """Segment each window of ``windows [Wn, step, H, W, 3]`` in turn,
     refitting after every window before the last real one. Returns
-    (``[Wn*step, H, W]`` probs, params)."""
+    (``[Wn*step, H, W]`` probs, or ``[O, Wn*step, H, W]`` for stacked
+    objects, params)."""
     refit = make_ona_refit_fn(model_apply, meta_cfg, cfg)
     k = min(cfg.online_adapt_step, cfg.batch_size)
+    stacked = support_label.dim() == 3
     probs = []
     for i in range(windows.shape[0]):
         window = windows[i]
-        w_probs = segment_frames(model_apply, cfg, params, window)
+        w_probs = segment_frames(model_apply, cfg, params, window, stacked)
         probs.append(w_probs)
         if i < wn_real - 1:
-            pseudo = build_pseudo_gt(w_probs[-k:], cfg.online_adapt_min_prop,
-                                     orig_hw)
+            pseudo = build_pseudo_gt(w_probs[..., -k:, :, :],
+                                     cfg.online_adapt_min_prop, orig_hw)
             params = refit(meta_params, support_img, support_label,
                            window[-k:], pseudo, params)
-    return torch.cat(probs, 0), params
+    return torch.cat(probs, -3), params
 
 
 def one_shot_packed(model_apply: Callable, meta_cfg: MetaOptimConfig,
@@ -262,19 +307,43 @@ def one_shot_packed_ona(model_apply: Callable, meta_cfg: MetaOptimConfig,
     return pack_mask_bits(probs >= cfg.threshold)
 
 
+def object_generators(seed: int, objects: int) -> List[torch.Generator]:
+    """Object i's generator, seeded ``fold_in(seed, i)``."""
+    return [_generator(fold_in(seed, i)) for i in range(objects)]
+
+
+def stack_for_objects(model_apply: Callable, meta_cfg: MetaOptimConfig,
+                      meta_params: MetaParams, init_params: Params,
+                      objects: int) -> Tuple[Callable, MetaParams, Params]:
+    """The object-stacked model apply, meta-parameters (the learned init
+    and the lrs repeated along dim 0) and, where the fine-tune starts from
+    it, init of ``objects`` objects."""
+    init = meta_params.model_init
+    stacked_meta = MetaParams(
+        model_init=None if init is None else stack_objects([init] * objects),
+        log_init_lr=stack_lrs(meta_params.log_init_lr, objects))
+    from_init = (init_params is not None
+                 and not (meta_cfg.learn_model_init and init is not None))
+    return (object_stacked_apply(model_apply, objects), stacked_meta,
+            stack_objects([init_params] * objects) if from_init else None)
+
+
 def _fine_tune_objects(model_apply: Callable, meta_cfg: MetaOptimConfig,
                        cfg: OneShotConfig, meta_params: MetaParams, seed: int,
                        support_img: torch.Tensor, labels: torch.Tensor,
-                       init_params: Params) -> Iterator[Params]:
-    """Each object's fine-tuned params in turn, object i (label
-    ``labels[i]``) drawing from ``fold_in(seed, i)``: the schedule of the
-    per-object evaluation, so stream results equal ``eval_sequence``'s.
-    Yields, so one object's params can be dropped before the next
-    fine-tune."""
-    for i in range(labels.shape[0]):
-        yield fine_tune_on_support(model_apply, meta_cfg, cfg, meta_params,
-                                   _generator(fold_in(seed, i)), support_img,
-                                   labels[i], init_params)[0]
+                       init_params: Params
+                       ) -> Tuple[Callable, MetaParams, Params]:
+    """Every object fine-tuned at once (labels ``[O, H, W]``), object i
+    drawing from ``fold_in(seed, i)``: the schedule of the batched
+    evaluation, so stream results equal ``eval_sequence``'s. Returns the
+    stacked apply, meta-parameters and fine-tuned params."""
+    objects = labels.shape[0]
+    apply, meta, init = stack_for_objects(model_apply, meta_cfg, meta_params,
+                                          init_params, objects)
+    params, _ = fine_tune_on_support(apply, meta_cfg, cfg, meta,
+                                     object_generators(seed, objects),
+                                     support_img, labels, init)
+    return apply, meta, params
 
 
 def merge_objects(probs: torch.Tensor, threshold: float = 0.5
@@ -319,15 +388,15 @@ def one_shot_packed_objects(model_apply: Callable, meta_cfg: MetaOptimConfig,
                             seed: int, support_img: torch.Tensor,
                             labels: torch.Tensor, frames: torch.Tensor,
                             init_params: Params = None) -> torch.Tensor:
-    """Multi-object serving without online adaptation: each object
-    fine-tuned and ``frames`` segmented in turn, argmax merge, per-object
-    bit planes. ``labels [O, H, W]`` in {0, 1, 255}. Returns uint8
-    ``[O, T, H, ceil(W/8)]`` for the frames given."""
-    probs = torch.stack([
-        segment_frames(model_apply, cfg, params, frames)
-        for params in _fine_tune_objects(
-            model_apply, meta_cfg, cfg, meta_params, seed, support_img,
-            labels, init_params)])
+    """Multi-object serving without online adaptation: the objects
+    fine-tuned and ``frames`` segmented together (objects as a batch
+    axis), argmax merge, per-object bit planes. ``labels [O, H, W]`` in
+    {0, 1, 255}. Returns uint8 ``[O, T, H, ceil(W/8)]`` for the frames
+    given."""
+    apply, _, params = _fine_tune_objects(
+        model_apply, meta_cfg, cfg, meta_params, seed, support_img, labels,
+        init_params)
+    probs = segment_frames(apply, cfg, params, frames, stacked=True)
     return _pack_merged_planes(merge_objects(probs, cfg.threshold),
                                labels.shape[0])
 
@@ -339,17 +408,16 @@ def one_shot_packed_objects_ona(model_apply: Callable,
                                 labels: torch.Tensor, windows: torch.Tensor,
                                 wn_real: int, init_params: Params = None
                                 ) -> torch.Tensor:
-    """Multi-object OnA serving: each object fine-tuned and propagated
-    through the fused windows in turn, argmax merge, per-object bit planes.
-    Returns uint8 ``[O, Wn*step, H, ceil(W/8)]`` for the frames after the
-    shared support frame."""
-    w_flat = torch.stack([
-        propagate_windows(model_apply, meta_cfg, cfg, orig_hw, meta_params,
-                          support_img, labels[i], windows, params,
-                          wn_real)[0]
-        for i, params in enumerate(_fine_tune_objects(
-            model_apply, meta_cfg, cfg, meta_params, seed, support_img,
-            labels, init_params))])
+    """Multi-object OnA serving: the objects fine-tuned and propagated
+    through the fused windows together (objects as a batch axis), argmax
+    merge, per-object bit planes. Returns uint8 ``[O, Wn*step, H,
+    ceil(W/8)]`` for the frames after the shared support frame."""
+    apply, meta, params = _fine_tune_objects(
+        model_apply, meta_cfg, cfg, meta_params, seed, support_img, labels,
+        init_params)
+    w_flat, _ = propagate_windows(apply, meta_cfg, cfg, orig_hw, meta,
+                                  support_img, labels, windows, params,
+                                  wn_real)
     return _pack_merged_planes(merge_objects(w_flat, cfg.threshold),
                                labels.shape[0])
 
@@ -431,23 +499,27 @@ class OneShotEvaluator:
 
     ``model_apply(params, imgs [B, H, W, 3]) -> logits [B, H, W, 1]``
     (``models.functional_apply``). ``device`` is where frames and labels
-    live: ``cuda`` unless the caller asks for another. ``fused_ona`` picks
-    the fused window loop (off by default, as in the JAX package).
-    ``on_phase(name)``, when given, is called as each phase ends
-    (``"fine_tune"`` and ``"propagate"`` of each object group, then
+    live: ``cuda`` unless the caller asks for another. ``batch_objects``
+    (on by default, as in the JAX package) runs the object groups of a
+    sequence that share a support frame together, as an object-stacked
+    model (``models/stacked.py``). ``fused_ona`` picks the fused window
+    loop (off by default, as in the JAX package). ``on_phase(name)``, when
+    given, is called as each phase ends (``"fine_tune"`` and
+    ``"propagate"`` of each object group, or once for batched objects, then
     ``"score"`` of a sequence), e.g. to record a CUDA event there; it never
     synchronizes the device."""
 
     def __init__(self, model_apply: Callable, meta_cfg: MetaOptimConfig,
                  cfg: OneShotConfig, device=None,
                  on_phase: Optional[Callable[[str], None]] = None,
-                 fused_ona: bool = False):
+                 fused_ona: bool = False, batch_objects: bool = True):
         self.model_apply = model_apply
         self.meta_cfg = meta_cfg
         self.cfg = cfg
         self.device = resolve_device(device)
         self.on_phase = on_phase
         self.fused_ona = fused_ona and cfg.online_adapt_step > 0
+        self.batch_objects = batch_objects
 
     def _phase_done(self, name: str) -> None:
         if self.on_phase is not None:
@@ -459,20 +531,28 @@ class OneShotEvaluator:
                       seed: int, init_params: Params = None
                       ) -> Dict[str, Any]:
         """Fine-tune and propagate every object group of one sequence, merge
-        and score. Group gi draws from ``fold_in(seed, gi)``. Returns the
-        merged uint8 labels ``[T, H, W]``, the probabilities ``[O, T, H, W]``
-        and the J/F means per object and over objects."""
+        and score. Group gi draws from ``fold_in(seed, gi)``. Groups that
+        share a support frame run together with ``batch_objects``, else in
+        turn. Returns the merged uint8 labels ``[T, H, W]``, the
+        probabilities ``[O, T, H, W]`` and the J/F means per object and
+        over objects."""
         seq = index.sequences[seq_name]
         groups = seq.object_groups
         frames, support, (T, h0, w0) = stage_sequence(
             index, seq_name, self.device, self.cfg.pad_multiple)
-        # each group's params are dropped before the next group starts
-        probs = torch.stack([
-            self._eval_object_group(
-                index, seq, frames, g, meta_params,
-                _generator(fold_in(seed, gi)), init_params,
-                orig_hw=(h0, w0), support_img=support[g.support_frame])
-            for gi, g in enumerate(groups)])
+        if self._batched(groups):
+            probs = self._eval_objects_batched(
+                index, seq, frames, meta_params, seed, init_params,
+                orig_hw=(h0, w0),
+                support_img=support[groups[0].support_frame])
+        else:
+            # each group's params are dropped before the next group starts
+            probs = torch.stack([
+                self._eval_object_group(
+                    index, seq, frames, g, meta_params,
+                    _generator(fold_in(seed, gi)), init_params,
+                    orig_hw=(h0, w0), support_img=support[g.support_frame])
+                for gi, g in enumerate(groups)])
         probs = probs[..., :h0, :w0]  # crop the bucket padding
         merged = merge_objects(probs, self.cfg.threshold)
         j_means, f_means, _ = score_merged_device(index, seq_name, seq, merged)
@@ -497,10 +577,11 @@ class OneShotEvaluator:
 
         Sequence i runs on the seed ``fold_in(seed, i)`` along the schedule
         of ``eval_sequence``, whose fused path (``fused_ona=True``) it
-        follows, so its row equals ``eval_sequence(fold_in(seed, i))``'s
-        merged map. Only the frames after the support frame are segmented.
-        A sequence whose groups have different support frames goes through
-        ``eval_sequence``.
+        follows, objects batched, so its row equals
+        ``eval_sequence(fold_in(seed, i))``'s merged map. Only the frames
+        after the support frame are segmented. A multi-object sequence that
+        ``eval_sequence`` runs in turn (groups with different support
+        frames, or ``batch_objects=False``) goes through ``eval_sequence``.
 
         Returns ``{name: uint8 [T, H, W]}`` label maps with the support row
         from the GT and the frames before it 0."""
@@ -511,7 +592,7 @@ class OneShotEvaluator:
             groups = seq.object_groups
             seed_i = fold_in(seed, i)
             multi = len(groups) > 1
-            if len({g.support_frame for g in groups}) > 1:
+            if multi and not self._batched(groups):
                 res = self.eval_sequence(index, name, meta_params, seed_i,
                                          init_params)
                 pend.append(("done", name, res["merged"]))
@@ -594,6 +675,82 @@ class OneShotEvaluator:
         return {"seq": seq_name, "init_J_mean": _nanmean(j_means),
                 "init_F_mean": _nanmean(f_means)}
 
+    def _batched(self, groups) -> bool:
+        """Whether the groups run together: more than one, one support
+        frame, ``batch_objects`` (the JAX package's rule)."""
+        return (self.batch_objects and len(groups) > 1
+                and len({g.support_frame for g in groups}) == 1)
+
+    def _eval_objects_batched(self, index, seq, frames: torch.Tensor,
+                              meta_params: MetaParams, seed: int,
+                              init_params: Params, orig_hw=None,
+                              support_img: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+        """``[O, T, H, W]`` foreground probabilities of the object groups
+        of ``seq``, which share a support frame, fine-tuned, segmented and
+        refit together by the object-stacked model; group i draws from
+        ``fold_in(seed, i)``."""
+        groups = seq.object_groups
+        frames = frames.to(self.device)
+        hw = tuple(frames.shape[1:3])
+        sf = groups[0].support_frame
+        if support_img is None:
+            support_img = frames[sf]
+        gt = index.get_label(seq.name, sf)
+        labels = transforms.pad_label_to(upload(np.stack(
+            [binarize_label(gt, g.object_ids) for g in groups]
+        ).astype(np.int32), self.device), hw)
+        apply, meta, params = _fine_tune_objects(
+            self.model_apply, self.meta_cfg, self.cfg, meta_params, seed,
+            support_img, labels, init_params)
+        self._phase_done("fine_tune")
+        probs = self._propagate(apply, meta, frames, sf, orig_hw,
+                                support_img, labels, params)
+        self._phase_done("propagate")
+        return probs
+
+    def _propagate(self, model_apply: Callable, meta_params: MetaParams,
+                   frames: torch.Tensor, sf: int, orig_hw,
+                   support_img: torch.Tensor, support_label: torch.Tensor,
+                   params: Params) -> torch.Tensor:
+        """Probabilities ``[T, H, W]`` (stacked objects: ``[O, T, H, W]``):
+        the support frame's GT (void pixels are not foreground), zeros
+        before it, and after it the fused or the host window loop from the
+        fine-tuned ``params``."""
+        cfg = self.cfg
+        T = frames.shape[0]
+        probs = torch.zeros(tuple(support_label.shape[:-2]) + (T,)
+                            + tuple(frames.shape[1:3]), dtype=torch.float32,
+                            device=self.device)
+        probs[..., sf, :, :] = (support_label == 1).float()
+        stacked = support_label.dim() == 3
+        if self.fused_ona and sf + 1 < T:
+            windows, r, wn_real = stack_windows(
+                frames[sf + 1:], cfg.online_adapt_step, cfg.ona_window_bucket)
+            w_flat, _ = propagate_windows(
+                model_apply, self.meta_cfg, cfg, orig_hw, meta_params,
+                support_img, support_label, windows, params, wn_real)
+            probs[..., sf + 1:, :, :] = w_flat[..., :r, :, :]
+            return probs
+        # the host loop: windows of `step` frames (one window of the rest
+        # without OnA), a ragged tail, a refit while frames remain
+        ona = cfg.online_adapt_step > 0
+        step = cfg.online_adapt_step if ona else T
+        k = min(step, cfg.batch_size)
+        refit = make_ona_refit_fn(model_apply, self.meta_cfg, cfg)
+        for start in range(sf + 1, T, step):
+            end = min(start + step, T)
+            window = frames[start:end]
+            w_probs = segment_frames(model_apply, cfg, params, window,
+                                     stacked)
+            probs[..., start:end, :, :] = w_probs
+            if ona and end < T:
+                pseudo = build_pseudo_gt(w_probs[..., -k:, :, :],
+                                         cfg.online_adapt_min_prop, orig_hw)
+                params = refit(meta_params, support_img, support_label,
+                               window[-k:], pseudo, params)
+        return probs
+
     def _eval_object_group(self, index, seq, frames: torch.Tensor, group,
                            meta_params: MetaParams,
                            generator: torch.Generator, init_params: Params,
@@ -605,7 +762,6 @@ class OneShotEvaluator:
         device; ``generator`` draws the fine-tune's augmentations."""
         cfg = self.cfg
         frames = frames.to(self.device)
-        T = frames.shape[0]
         hw = tuple(frames.shape[1:3])
         sf = group.support_frame
         if support_img is None:
@@ -619,35 +775,7 @@ class OneShotEvaluator:
             self.model_apply, self.meta_cfg, cfg, meta_params, generator,
             support_img, support_label, init_params)
         self._phase_done("fine_tune")
-
-        probs = torch.zeros((T,) + hw, dtype=torch.float32,
-                            device=self.device)
-        # support frame gets its GT (void pixels are not foreground); frames
-        # before it stay 0
-        probs[sf] = (support_label == 1).float()
-        if self.fused_ona and sf + 1 < T:
-            windows, r, wn_real = stack_windows(
-                frames[sf + 1:], cfg.online_adapt_step, cfg.ona_window_bucket)
-            w_flat, _ = propagate_windows(
-                self.model_apply, self.meta_cfg, cfg, orig_hw, meta_params,
-                support_img, support_label, windows, params, wn_real)
-            probs[sf + 1:] = w_flat[:r]
-        else:
-            # the host loop: windows of `step` frames (one window of the
-            # rest without OnA), a ragged tail, a refit while frames remain
-            ona = cfg.online_adapt_step > 0
-            step = cfg.online_adapt_step if ona else T
-            k = min(step, cfg.batch_size)
-            refit = make_ona_refit_fn(self.model_apply, self.meta_cfg, cfg)
-            for start in range(sf + 1, T, step):
-                end = min(start + step, T)
-                window = frames[start:end]
-                w_probs = segment_frames(self.model_apply, cfg, params, window)
-                probs[start:end] = w_probs
-                if ona and end < T:
-                    pseudo = build_pseudo_gt(
-                        w_probs[-k:], cfg.online_adapt_min_prop, orig_hw)
-                    params = refit(meta_params, support_img, support_label,
-                                   window[-k:], pseudo, params)
+        probs = self._propagate(self.model_apply, meta_params, frames, sf,
+                                orig_hw, support_img, support_label, params)
         self._phase_done("propagate")
         return probs

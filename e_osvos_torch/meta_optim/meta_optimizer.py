@@ -135,12 +135,15 @@ def inner_sgd_step(loss_fn: LossFn, params: Params, lrs: Params, batch: Any,
     require grad; the rest (frozen-BN buffers) pass to the model unchanged.
     ``lrs`` are materialized (positive) and broadcast against the params.
     ``grad_sum`` (one tensor per lr, in the order of ``lrs``), when given,
-    accumulates the step's gradients. Returns the same dict and the
-    detached loss."""
+    accumulates the step's gradients. A loss with one entry an object (an
+    object-stacked model, ``models/stacked.py``) is differentiated as
+    its sum: each object's gradient is its own. Returns the same dict and
+    the detached loss."""
     names = list(lrs)
     leaves = [params[k] for k in names]
     loss = loss_fn(params, batch)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss if loss.dim() == 0 else loss.sum(),
+                                leaves)
     with torch.no_grad():
         torch._foreach_sub_(
             leaves, torch._foreach_mul(grads, [lrs[k] for k in names]))
@@ -168,9 +171,12 @@ def fine_tune(cfg: MetaOptimConfig, loss_fn: LossFn, meta_params: MetaParams,
 
     ``early_stop_patience`` > 0 enables the early-stopping latch: once the
     loss has not made a new minimum for ``patience`` steps, later steps
-    leave the params alone and report +inf.
+    leave the params alone and report +inf. With one loss an object (an
+    object-stacked model) the latch is per object, as under the JAX
+    package's ``vmap``: a stopped object's block of every parameter (its
+    share of dim 0) stays as it is while the others go on.
 
-    Returns ``(params, per-step losses)``."""
+    Returns ``(params, per-step losses)`` (``[steps]``, or ``[steps, O]``)."""
     lrs = materialize_lrs(meta_params.log_init_lr, cfg.use_log_init_lr)
     if reset:
         params = reset_params(cfg, meta_params, init_params)
@@ -183,19 +189,70 @@ def fine_tune(cfg: MetaOptimConfig, loss_fn: LossFn, meta_params: MetaParams,
     lrs = _full_lrs(lrs, params)
 
     losses = []
-    best, since, stopped = math.inf, 0, False
+    latch = _EarlyStop(early_stop_patience) if early_stop_patience > 0 \
+        else None
     for batch in batches:
-        if stopped:
-            losses.append(torch.full((), math.inf, device=losses[-1].device))
+        if latch is not None and latch.all_stopped:
+            losses.append(torch.full_like(losses[-1], math.inf))
             continue
-        params, loss = inner_sgd_step(loss_fn, params, lrs, batch)
+        step_lrs = lrs if latch is None else latch.freeze(lrs)
+        params, loss = inner_sgd_step(loss_fn, params, step_lrs, batch)
+        if latch is not None:
+            loss = latch.update(loss)
         losses.append(loss.float())
-        if early_stop_patience > 0:
-            value = float(loss)  # host sync; only with the latch on
-            since = 0 if value < best else since + 1
-            best = min(best, value)
-            stopped = since >= early_stop_patience
     return params, torch.stack(losses)
+
+
+class _EarlyStop:
+    """The early-stopping latch of ``fine_tune``, one entry a loss entry
+    (one, or one an object). An entry stopped before a step reports +inf
+    for it and keeps its parameters: its lr blocks (its share of dim 0) are
+    zero for the step. Reads each step's loss on the host."""
+
+    def __init__(self, patience: int):
+        self.patience = patience
+        self.best: Optional[List[float]] = None
+        self.since: List[int] = []
+        self.stopped: List[bool] = []
+
+    @property
+    def all_stopped(self) -> bool:
+        return bool(self.stopped) and all(self.stopped)
+
+    def freeze(self, lrs: Params) -> Params:
+        if not any(self.stopped):
+            return lrs
+        n = len(self.stopped)
+        out = {}
+        for k, lr in lrs.items():
+            lr = lr.clone()
+            block = lr.shape[0] // n
+            for o, stop in enumerate(self.stopped):
+                if stop:
+                    lr.narrow(0, o * block, block).zero_()
+            out[k] = lr
+        return out
+
+    def update(self, loss: torch.Tensor) -> torch.Tensor:
+        """Latch on this step's loss; returns it with +inf where an entry
+        had stopped before the step."""
+        values = loss.detach().float().reshape(-1).tolist()  # host sync
+        if self.best is None:
+            n = len(values)
+            self.best, self.since, self.stopped = ([math.inf] * n, [0] * n,
+                                                   [False] * n)
+        was = list(self.stopped)
+        for o, value in enumerate(values):
+            if was[o]:
+                continue
+            self.since[o] = 0 if value < self.best[o] else self.since[o] + 1
+            self.best[o] = min(self.best[o], value)
+            self.stopped[o] = self.since[o] >= self.patience
+        if not any(was):
+            return loss
+        inf = torch.tensor([math.inf if s else 0.0 for s in was],
+                           device=loss.device).reshape(loss.shape)
+        return torch.where(inf > 0, inf, loss)
 
 
 class _FirstOrderChain(torch.autograd.Function):

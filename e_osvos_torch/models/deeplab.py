@@ -40,9 +40,27 @@ def resize_bilinear_align_corners(x: torch.Tensor, size) -> torch.Tensor:
                          align_corners=True)
 
 
+def cat_channels(tensors: Sequence[torch.Tensor], objects: int = 1
+                 ) -> torch.Tensor:
+    """Concatenate NCHW tensors along the channels into a
+    ``channels_last`` tensor. With ``objects`` > 1 (an object-stacked
+    model, ``models/stacked.py``) each tensor holds ``objects`` equal
+    channel blocks, and the result is object by object: [object 0's block of
+    each tensor, object 1's, ...], the input a grouped convolution reads."""
+    if objects == 1:
+        return torch.cat(tensors, dim=1).contiguous(
+            memory_format=torch.channels_last)
+    n, _, h, w = tensors[0].shape
+    parts = [t.permute(0, 2, 3, 1).reshape(n, h, w, objects, -1)
+             for t in tensors]
+    return torch.cat(parts, dim=-1).reshape(n, h, w, -1).permute(0, 3, 1, 2)
+
+
 class ASPP(nn.Module):
     """1x1 + three dilated 3x3 branches + image-pooling branch, fused by a
     1x1 projection; every branch conv → norm → relu."""
+
+    objects = 1  # object blocks of the channels (models/stacked.py)
 
     def __init__(self, in_ch: int, out_ch: int = 256,
                  rates: Sequence[int] = (6, 12, 18),
@@ -72,8 +90,7 @@ class ASPP(nn.Module):
         pooled = x.mean(dim=(2, 3), keepdim=True)
         pooled = F.relu(self.pool_norm(self.pool_conv(pooled)))
         branches.append(pooled.expand(-1, -1, x.shape[2], x.shape[3]))
-        y = torch.cat(branches, dim=1).contiguous(
-            memory_format=torch.channels_last)
+        y = cat_channels(branches, self.objects)
         return F.relu(self.proj_norm(self.proj_conv(y)))
 
 
@@ -105,6 +122,8 @@ def init_weights(model: nn.Module, seed: int) -> None:
 
 class _SegmentationModel(nn.Module):
     """Shared set-up: seeded init, device, channels_last, NHWC interface."""
+
+    objects = 1  # object blocks of the channels (models/stacked.py)
 
     def _finish(self, seed: int, device) -> None:
         init_weights(self, seed)
@@ -173,8 +192,7 @@ class DeepLabV3Plus(_SegmentationModel):
         y = self.aspp(feats["C5"])
         low = F.relu(self.low_norm(self.low_conv(feats["C2"])))
         y = resize_bilinear_align_corners(y, low.shape[-2:])
-        y = torch.cat([y, low.to(y.dtype)], dim=1).contiguous(
-            memory_format=torch.channels_last)
+        y = cat_channels([y, low.to(y.dtype)], self.objects)
         y = F.relu(self.dec_norm1(self.dec_conv1(y)))
         y = F.relu(self.dec_norm2(self.dec_conv2(y)))
         return self.classifier(y)
@@ -195,9 +213,10 @@ def build_model(architecture: str, **kwargs) -> nn.Module:
 def functional_apply(model: nn.Module):
     """``apply(params, *args, **kwargs)`` over a dict of parameters, the
     counterpart of flax's ``model.apply(variables, ...)``; buffers stay the
-    module's."""
+    module's unless ``params`` names them. ``apply.model`` is ``model``."""
 
     def apply(params, *args, **kwargs):
         return torch.func.functional_call(model, params, args, kwargs)
 
+    apply.model = model  # for its object-stacked form (models/stacked.py)
     return apply

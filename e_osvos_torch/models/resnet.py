@@ -26,7 +26,12 @@ Norm = Callable[[int], nn.Module]
 
 class Conv(nn.Module):
     """``nn.Conv`` of flax with explicit symmetric padding: weight
-    ``[O, I, kh, kw]`` (float32), input and weight cast to ``dtype``."""
+    ``[O, I, kh, kw]`` (float32), input and weight cast to ``dtype``.
+
+    ``groups`` (flax's ``feature_group_count``) is 1 but in an
+    object-stacked model (``models/stacked.py``), where each object is a
+    group; an input of one group's width is then shared by every group (an
+    ungrouped convolution with the groups' weights concatenated)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  dilation: int = 1, padding: int = 0, use_bias: bool = False,
@@ -34,13 +39,15 @@ class Conv(nn.Module):
         super().__init__()
         self.stride, self.dilation, self.padding = stride, dilation, padding
         self.dtype = dtype
+        self.groups = 1
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(self.dtype)
+        groups = self.groups if x.shape[1] != self.weight.shape[1] else 1
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), bias,
-                        self.stride, self.padding, self.dilation)
+                        self.stride, self.padding, self.dilation, groups)
 
 
 class Dense(nn.Module):

@@ -23,9 +23,15 @@ from e_osvos_torch.cli.common import (
     init_model_params,
     resolve_meta_params,
 )
+from e_osvos_torch.meta_optim import MetaParams
 from e_osvos_torch.models.jax_weights import (
     lr_tree_from_jax,
     state_dict_from_jax,
+)
+from e_osvos_torch.models.torch_import import (
+    load_mapped_from_torch,
+    reference_meta_checkpoint,
+    reference_state_dict,
 )
 from e_osvos_torch.utils import save_checkpoint
 from e_osvos_torch.utils.checkpoint import (
@@ -173,8 +179,10 @@ def test_port_checkpoints_load_as_before(jax_files, tmp_path):
 
 def test_missing_and_foreign_checkpoints(jax_files, tmp_path):
     """An explicitly named meta file must exist (``resume`` may not yet);
-    the reference's PyTorch files need the importer, which is not ported;
-    a parent of another model is refused."""
+    the reference's PyTorch files go through the importer: a ``.pth``
+    parent in the reference's vocabulary (BatchNorm statistics folded) and
+    a ``.model`` meta checkpoint load as ``torch_import`` reads them; a
+    parent of another model is refused."""
     model = build_parent_model(config.parse_cli(ARGV))
     with pytest.raises(FileNotFoundError):
         resolve_meta_params(config.parse_cli(
@@ -182,14 +190,31 @@ def test_missing_and_foreign_checkpoints(jax_files, tmp_path):
     fresh = resolve_meta_params(config.parse_cli(
         ARGV + [f"resume={tmp_path / 'none.ckpt'}"]), model)
     assert set(fresh.log_init_lr) == {n for n, _ in model.named_parameters()}
-    pth = tmp_path / "parent.pth"
-    pth.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="torch_import"):
-        cfg = config.parse_cli(ARGV + [f"parent_model.checkpoint={pth}"])
-        init_model_params(cfg, build_parent_model(cfg))
-    with pytest.raises(NotImplementedError, match="torch_import"):
-        resolve_meta_params(config.parse_cli(
-            ARGV + [f"meta_optim_model_file={pth}"]), model)
+    source = state_dict_from_jax(jax_files["variables"])
+    buffers = [n for n, _ in model.named_buffers()]
+    sd = reference_state_dict(source, "deeplab_v3plus", buffers, seed=4)
+    pth = str(tmp_path / "parent.pth")
+    torch.save(sd, pth)
+    cfg = config.parse_cli(ARGV + [f"parent_model.checkpoint={pth}"])
+    parent = init_model_params(cfg, build_parent_model(cfg))
+    want, n = load_mapped_from_torch(model.state_dict(), sd)
+    assert n == len(source)
+    got = parent.state_dict()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    torch.testing.assert_close(got, source, rtol=1e-5, atol=1e-6)
+
+    lrs = lr_tree_from_jax(jax_files["lrs"])
+    meta_file = str(tmp_path / "best.model")
+    torch.save(reference_meta_checkpoint(
+        MetaParams(model_init=source, log_init_lr=lrs), "deeplab_v3plus"),
+        meta_file)
+    for key in ("meta_optim_model_file", "resume"):
+        meta = resolve_meta_params(config.parse_cli(
+            ARGV + [f"{key}={meta_file}"]), parent)
+        assert all(torch.equal(meta.log_init_lr[k], lrs[k]) for k in lrs)
+        assert all(torch.equal(meta.model_init[k], source[k])
+                   for k in lrs)  # the trainable entries
+        assert all(torch.equal(meta.model_init[b], got[b]) for b in buffers)
     with pytest.raises(ValueError):
         cfg = config.parse_cli(ARGV + [
             "parent_model.architecture=DeepLabV3",

@@ -30,8 +30,18 @@ from e_osvos_tpu.models import DeepLabV3Plus as JDeepLabV3Plus
 from e_osvos_tpu.utils import save_checkpoint as j_save_checkpoint
 from e_osvos_torch import config
 from e_osvos_torch.cli import evaluate, train_meta
-from e_osvos_torch.cli.common import build_parent_model, resolve_meta_params
+from e_osvos_torch.cli.common import (
+    build_parent_model,
+    meta_params_from_flax,
+    resolve_meta_params,
+)
 from e_osvos_torch.data.synthetic_disk import _write_sequence
+from e_osvos_torch.models.jax_weights import state_dict_from_jax
+from e_osvos_torch.models.torch_import import (
+    reference_meta_checkpoint,
+    reference_state_dict,
+)
+from e_osvos_torch.utils.checkpoint import load_flax_checkpoint
 from e_osvos_torch.utils.png import davis_palette, load_indexed_png
 from test_torch_port_detection_models import random_variables
 
@@ -178,10 +188,45 @@ def test_train_meta_checkpoint_loads_back(tree):
     assert moved  # the outer steps changed the meta-parameters
 
 
+def test_evaluate_reference_checkpoints(tree):
+    """The reference's files, a ``.pth`` parent (BatchNorm statistics to
+    fold) and a ``.model`` meta checkpoint, written from the JAX
+    checkpoints' weights, through ``cli.evaluate``: the records and maps of
+    the run on the JAX checkpoints, J and F within 1e-3 (the fold rounds)."""
+    d, argv = tree["dir"], tree["argv"] + ["device=cpu"]
+    cfg = config.parse_cli(argv)
+    model = build_parent_model(cfg)
+    source = state_dict_from_jax(load_flax_checkpoint(
+        cfg["parent_model"]["checkpoint"]))
+    meta = meta_params_from_flax(load_flax_checkpoint(
+        cfg["meta_optim_model_file"])["meta_params"])
+    pth, meta_file = str(d / "ref_parent.pth"), str(d / "ref_meta.model")
+    torch.save(reference_state_dict(
+        source, "deeplab_v3plus", [n for n, _ in model.named_buffers()],
+        seed=2), pth)
+    torch.save(reference_meta_checkpoint(meta, "deeplab_v3plus"), meta_file)
+    runs = {}
+    for tag, extra in (("flax", []), ("reference", [
+            f"parent_model.checkpoint={pth}",
+            f"meta_optim_model_file={meta_file}"])):
+        runs[tag] = evaluate.main(argv + extra + [
+            f"save_dir={d / tag}", f"save_preds={d / tag / 'preds'}"])
+    assert [r["event"] for r in runs["reference"]] == [
+        r["event"] for r in runs["flax"]] == ["eval_seq"] * 2 + ["eval_total"]
+    for got, want in zip(runs["reference"], runs["flax"]):
+        assert got.get("seq") == want.get("seq")
+        for k in ("J_mean", "F_mean"):
+            assert abs(got[k] - want[k]) <= 1e-3, (got, want)
+    for name in SEQS:
+        maps = [np.stack([load_indexed_png(str(d / tag / "preds" / name
+                                               / f"{t:05d}.png"))
+                          for t in range(T)]) for tag in runs]
+        assert (maps[0] != maps[1]).mean() <= 1e-3
+
+
 @pytest.mark.parametrize("extra, match", [
-    (["parent_model.checkpoint=parent.pth"], "torch_import"),
     (["eval_frame_parallel=True"], "E1"),
-], ids=["pth_parent", "frame_parallel"])
+], ids=["frame_parallel"])
 def test_evaluate_raises_what_is_not_ported(tree, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         evaluate.main(tree["argv"] + extra + [

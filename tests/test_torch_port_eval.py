@@ -5,9 +5,10 @@ against the JAX package on the CPU, on the same weights, lrs and frames.
 resnet10 frozen-BN backbone, group16 head, os16, fp32, 32x48, 6 frames (OnA
 every 2 frames: windows of 2, 2 and a ragged 1), 2 objects; the augmentation
 ranges are degenerate (scale 1, no rotation, jitter or flip, float32
-arithmetic), so neither side's random draws change the result. The JAX side
-runs its objects as a vmapped batch axis, the port runs them in turn. One
-JAX evaluator is shared by the module: its compiles dominate."""
+arithmetic), so neither side's random draws change the result. Both sides
+run the objects of a sequence as a batch axis (the JAX side vmapped, the
+port object-stacked), the default of both. One JAX evaluator is shared by
+the module: its compiles dominate."""
 
 import dataclasses
 
@@ -139,8 +140,9 @@ def test_eval_sequence_matches_jax(pair, jax_eval):
     phases = []
     ev = evaluator(pair, on_phase=phases.append)
     assert not ev.fused_ona  # the JAX default: the host window loop
+    assert ev.batch_objects  # the JAX default: objects as a batch axis
     got = ev.eval_sequence(index, "seq00", pair["meta"], 4)
-    assert phases == ["fine_tune", "propagate"] * 2 + ["score"]
+    assert phases == ["fine_tune", "propagate", "score"]  # objects together
 
     assert set(got) == set(want)
     assert got["seq"] == "seq00"

@@ -25,7 +25,7 @@ TOL = 1e-4
 # (N, M, C, G): ragged M (143 rows, 257 rows), C = 48, M = 1, N = 1, two
 # channels a group (the Mask R-CNN stem's GroupNorm-32 at C = 64)
 CASES = [(2, 143, 32, 4), (1, 257, 48, 16), (3, 1, 64, 16), (1, 90, 256, 16),
-         (2, 37, 64, 32)]
+         (2, 37, 64, 32), (2, 45, 96, 32)]  # the last: 2 objects' low_norm
 
 
 def _inputs(n, m, c, seed):
@@ -102,12 +102,15 @@ def test_wrappers_take_twins_on_cpu_and_check_groups():
 
 # (N, M, C, G): the DeepLab decoder at batches 3/4/5, the Mask R-CNN
 # backbone's GroupNorm-32 (stem at batch 3 to layer4), the edge shapes of
-# chip_smoke.py, and C not a multiple of the vector width
+# chip_smoke.py, C not a multiple of the vector width, and the
+# object-stacked decoder and low-level norm (models/stacked.py: O*C
+# channels, O*16 groups) of 2 objects and of 5
 PATH_SHAPES = [(3, 25680, 256, 16), (4, 25680, 256, 16), (5, 25680, 256, 16),
                (3, 102480, 64, 32), (3, 405, 2048, 32), (1, 1620, 1024, 32),
                (4, 6420, 512, 32), (3, 25680, 48, 16), (3, 1, 256, 16),
                (2, 1000, 256, 16), (1, 777, 48, 16), (2, 129, 36, 4),
-               (1, 50, 30, 5)]
+               (1, 50, 30, 5), (3, 25680, 512, 32), (5, 25680, 512, 32),
+               (3, 25680, 96, 32), (5, 25680, 1280, 80), (3, 25680, 240, 80)]
 
 
 def _visits(t, m, c):
