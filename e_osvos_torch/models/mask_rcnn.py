@@ -43,6 +43,7 @@ from e_osvos_torch.models.rpn import (
     rpn_losses,
     select_proposals,
     smooth_l1,
+    unfold_objects,
 )
 from e_osvos_torch.ops import losses as loss_ops
 from e_osvos_torch.ops.boxes import (
@@ -100,8 +101,13 @@ class TrainDraws(NamedTuple):
 
 
 class BoxHead(nn.Module):
-    """7x7x256 ROI features → 2x FC-1024 → (class logits, per-class
-    deltas), both float32."""
+    """7x7x256 ROI features ``[N, 7, 7, C]`` → 2x FC-1024 → (class logits
+    ``[N, classes]``, per-class deltas ``[N, classes, 4]``), both float32.
+    In an object-stacked model (``objects`` > 1) the features are
+    ``[O, N, 7, 7, C]``, object o's rows through object o's weights, and
+    the outputs gain the leading O."""
+
+    objects = 1
 
     def __init__(self, in_features: int, num_classes: int = 2,
                  dtype: torch.dtype = torch.float32):
@@ -113,16 +119,23 @@ class BoxHead(nn.Module):
         self.bbox_pred = Dense(1024, num_classes * 4, dtype)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        n = x.shape[0]
-        x = F.relu(self.fc6(x.reshape(n, -1)))  # (h, w, c) order
+        lead = tuple(x.shape[:-3])
+        x = x.reshape(lead + (-1,))  # (h, w, c) order
+        x = F.relu(self.fc6(x))
         x = F.relu(self.fc7(x))
         return (self.cls_score(x).float(),
-                self.bbox_pred(x).float().reshape(n, self.num_classes, 4))
+                self.bbox_pred(x).float().reshape(lead + (self.num_classes,
+                                                          4)))
 
 
 class MaskHead(nn.Module):
     """14x14x256 ROI features ``[N, 14, 14, C]`` → 4 convs → 2x deconv →
-    per-class 28x28 logits ``[N, 28, 28, classes]`` float32."""
+    per-class 28x28 logits ``[N, 28, 28, classes]`` float32. In an
+    object-stacked model (``objects`` > 1) the features are ``[O, N, 14,
+    14, C]`` and run as one grouped stack, object o in channel block o;
+    the logits gain the leading O."""
+
+    objects = 1
 
     def __init__(self, channels: int = 256, num_classes: int = 2,
                  dtype: torch.dtype = torch.float32):
@@ -137,11 +150,19 @@ class MaskHead(nn.Module):
                                 dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        o = self.objects
+        if o > 1:  # [O, N, h, w, C] → [N, h, w, O·C]
+            _, n, h, w, c = x.shape
+            x = x.permute(1, 2, 3, 0, 4).reshape(n, h, w, o * c)
         x = x.permute(0, 3, 1, 2)  # NHWC → channels_last NCHW view
         for i in range(4):
             x = F.relu(getattr(self, f"mask_fcn{i + 1}")(x))
         x = F.relu(self.deconv(x))
-        return self.mask_logits(x).permute(0, 2, 3, 1).float()
+        x = self.mask_logits(x).permute(0, 2, 3, 1).float()
+        if o > 1:
+            n, h, w, oc = x.shape
+            x = x.reshape(n, h, w, o, oc // o).permute(3, 0, 1, 2, 4)
+        return x
 
 
 class Detections(NamedTuple):
@@ -209,7 +230,21 @@ class MaskRCNN(nn.Module):
     targets' coordinates (the meta-tasks' ``random_box_coord_perm``);
     inference: ``model(images, prev_boxes=..., prev_valid=...,
     proposal_aug_mode="EXTEND", draws=u_jitter)`` → ``Detections``.
+
+    Object-stacked (``objects`` = O > 1, ``models/stacked.py``): the trunk,
+    FPN and RPN head run on channels folded object by object, images
+    ``[B, H, W, 3]`` shared or ``[B, H, W, O·3]`` (object o's images in
+    channel block o); the RPN unfolds them into O·B images (image o·B + b,
+    ``rpn.unfold_objects``), over which the proposals, targets and RoI
+    pooling run as over any batch; the heads run each object's RoIs
+    through its own weights. Every per-object argument gains a leading O
+    (``gt_masks [O, B, M, H, W]``, ``gt_valid``, the draws' fields,
+    ``prev_boxes``, ``prev_valid``, the jitter uniforms), and so does
+    every output: the total ``[O]``, each loss ``[O]`` (a mean over that
+    object's images), the ``Detections`` fields.
     """
+
+    objects = 1
 
     def __init__(self, arch: str = "resnet50", backbone_norm: str = "group",
                  dtype: torch.dtype = torch.float32,
@@ -251,6 +286,27 @@ class MaskRCNN(nn.Module):
         p = self.rpn.post_nms_top_n + num_objects
         return [(batch, n), (batch, n), (batch, p), (batch, p)]
 
+    def _images(self, x: Optional[torch.Tensor]):
+        """A per-object argument ``[O, B, ...]`` as O·B images."""
+        if x is None or self.objects == 1:
+            return x
+        return x.reshape((-1,) + tuple(x.shape[2:]))
+
+    def _objects(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-image result ``[O·B, ...]`` as ``[O, B, ...]``."""
+        if self.objects == 1:
+            return x
+        return x.reshape((self.objects, -1) + tuple(x.shape[1:]))
+
+    def _head(self, head: nn.Module, rois: torch.Tensor):
+        """``head`` over the RoI features ``[O·B, R, h, w, C]``, each
+        object's rows through its own weights → outputs ``[O·B, R, ...]``."""
+        e, r = rois.shape[:2]
+        lead = (-1,) if self.objects == 1 else (self.objects, -1)
+        out = head(rois.reshape(lead + tuple(rois.shape[2:])))
+        return tuple(t.reshape((e, r) + tuple(t.shape[len(lead):]))
+                     for t in (out if isinstance(out, tuple) else (out,)))
+
     def forward(self, images: torch.Tensor,
                 gt_masks: Optional[torch.Tensor] = None,
                 gt_valid: Optional[torch.Tensor] = None, train: bool = False,
@@ -266,38 +322,47 @@ class MaskRCNN(nn.Module):
         proposals = select_proposals(self.rpn, anchors,
                                      [lg.detach() for lg in logits],
                                      [d.detach() for d in deltas], (h, w))
-        # per-image [H_l, W_l, C] views of P2..P5
-        roi_feats = [[p[i].permute(1, 2, 0) for p in pyramid[:4]]
-                     for i in range(images.shape[0])]
+        # per-image [H_l, W_l, C] maps of P2..P5, one copy a level when the
+        # objects' channels unfold
+        roi_feats = [unfold_objects(p, self.objects) for p in pyramid[:4]]
         if train:
-            return self._forward_train(draws, torch.cat(anchors), logits,
-                                       deltas, proposals, roi_feats,
-                                       gt_masks, gt_valid, box_coord_perm)
+            if draws is not None:
+                draws = TrainDraws(*(self._images(t) for t in draws))
+            return self._forward_train(
+                draws, torch.cat(anchors), logits, deltas, proposals,
+                roi_feats, self._images(gt_masks), self._images(gt_valid),
+                box_coord_perm)
         if proposal_aug_mode and prev_boxes is not None:
             proposals = augment_proposals_with_targets(
-                proposals, prev_boxes, prev_valid, proposal_aug_mode, draws)
-        return self._forward_eval((h, w), proposals, roi_feats)
+                proposals, self._images(prev_boxes),
+                self._images(prev_valid), proposal_aug_mode,
+                self._images(draws))
+        det = self._forward_eval((h, w), proposals, roi_feats)
+        return Detections(*(self._objects(t) for t in det))
 
     # ---- training --------------------------------------------------------
 
     def _forward_train(self, draws: TrainDraws, all_anchors, rpn_logits,
                        rpn_deltas, proposals: Proposals, roi_feats,
                        gt_masks, gt_valid, box_coord_perm=None):
+        """The losses of images ``[E, ...]`` (E = O·B): each image's
+        targets and samples, the heads over every image's RoIs at once,
+        then each image's losses; each loss is the mean over an object's
+        images."""
         cfg = self.roi
-        lg_all = torch.cat(rpn_logits, 1)  # [B, N]
-        dl_all = torch.cat(rpn_deltas, 1)  # [B, N, 4]
+        lg_all = torch.cat(rpn_logits, 1)  # [E, N]
+        dl_all = torch.cat(rpn_deltas, 1)  # [E, N, 4]
         num_pos = int(cfg.batch_size_per_image * cfg.positive_fraction)
-        per_image = []
+        rpn_l, samples = [], []
         for i in range(gt_masks.shape[0]):
             masks = gt_masks[i]
-            feats = roi_feats[i]
             gt_boxes, box_ok = masks_to_boxes(masks)
             gt_ok = gt_valid[i] & box_ok
 
             tgt = assign_rpn_targets(self.rpn, all_anchors, gt_boxes, gt_ok,
                                      draws.rpn_pos[i], draws.rpn_neg[i])
-            obj_l, rpnbox_l = rpn_losses(self.rpn, all_anchors, lg_all[i],
-                                         dl_all[i], tgt)
+            rpn_l.append(rpn_losses(self.rpn, all_anchors, lg_all[i],
+                                    dl_all[i], tgt))
 
             # the GT boxes join the proposals (torchvision behaviour)
             boxes = torch.cat([proposals.boxes[i], gt_boxes], 0)
@@ -320,43 +385,54 @@ class MaskRCNN(nn.Module):
             is_pos_slot = torch.arange(samp_idx.shape[0],
                                        device=samp_idx.device) < num_pos
             samp_label = is_pos_slot.long() * samp_ok.long()
-            n_ok = samp_ok.float().sum().clamp_min(1.0)
-
-            box_feats = multiscale_roi_align(
-                feats, samp_boxes, (cfg.box_roi_size, cfg.box_roi_size),
-                ROI_SCALES)
-            cls_logits, box_deltas = self.box_head(box_feats)
-            logp = F.log_softmax(cls_logits, dim=-1)
-            cls_l = -(logp.gather(1, samp_label[:, None])[:, 0]
-                      * samp_ok).sum() / n_ok
 
             reg_t = encode_boxes(gt_boxes[samp_gt], samp_boxes)
             if box_coord_perm is not None:
                 reg_t = reg_t[:, box_coord_perm]
             posm = (samp_label == 1) & samp_ok
-            breg_l = (smooth_l1(box_deltas[:, 1] - reg_t).sum(-1)
+            crops = stack_roi_align_u8(masks, samp_boxes[:num_pos],
+                                       samp_gt[:num_pos],
+                                       (cfg.mask_out_size, cfg.mask_out_size))
+            samples.append((samp_boxes, samp_label, samp_ok, reg_t, posm,
+                            crops))
+
+        samp_boxes = torch.stack([smp[0] for smp in samples])  # [E, R, 4]
+        cls_logits, box_deltas = self._head(
+            self.box_head, multiscale_roi_align(
+                roi_feats, samp_boxes, (cfg.box_roi_size, cfg.box_roi_size),
+                ROI_SCALES))
+        (m_logits,) = self._head(
+            self.mask_head, multiscale_roi_align(
+                roi_feats, samp_boxes[:, :num_pos].contiguous(),
+                (cfg.mask_roi_size, cfg.mask_roi_size), ROI_SCALES))
+
+        per_image = []
+        for i, (_, samp_label, samp_ok, reg_t, posm, crops) in enumerate(
+                samples):
+            n_ok = samp_ok.float().sum().clamp_min(1.0)
+            logp = F.log_softmax(cls_logits[i], dim=-1)
+            cls_l = -(logp.gather(1, samp_label[:, None])[:, 0]
+                      * samp_ok).sum() / n_ok
+            breg_l = (smooth_l1(box_deltas[i][:, 1] - reg_t).sum(-1)
                       * posm).sum() / n_ok
 
-            m_boxes = samp_boxes[:num_pos]
-            m_ok = posm[:num_pos]
-            m_feats = multiscale_roi_align(
-                feats, m_boxes, (cfg.mask_roi_size, cfg.mask_roi_size),
-                ROI_SCALES)
-            m_logits = self.mask_head(m_feats)[..., 1]  # class-1 channel
-            crops = stack_roi_align_u8(masks, m_boxes, samp_gt[:num_pos],
-                                       (cfg.mask_out_size, cfg.mask_out_size))
             ignore = crops > 200.0  # the 255 label, pooled
             tgt_bin = ((crops >= 0.5) & ~ignore).float()
-            valid_px = ~ignore & m_ok[:, None, None]
+            valid_px = ~ignore & posm[:num_pos, None, None]
+            logits_1 = m_logits[i][..., 1]  # class-1 channel
             if cfg.mask_loss.lower() == "lovasz":
-                mask_l = loss_ops.lovasz_hinge(m_logits, tgt_bin, valid_px,
+                mask_l = loss_ops.lovasz_hinge(logits_1, tgt_bin, valid_px,
                                                per_image=True)
             else:
-                mask_l = loss_ops.cross_entropy_loss(m_logits, tgt_bin,
+                mask_l = loss_ops.cross_entropy_loss(logits_1, tgt_bin,
                                                      valid_px)
-            per_image.append((obj_l, rpnbox_l, cls_l, breg_l, mask_l))
-        loss_dict = {name: torch.stack(ls).mean()
-                     for name, ls in zip(LOSS_NAMES, zip(*per_image))}
+            per_image.append((*rpn_l[i], cls_l, breg_l, mask_l))
+        if self.objects == 1:
+            loss_dict = {name: torch.stack(ls).mean()
+                         for name, ls in zip(LOSS_NAMES, zip(*per_image))}
+        else:
+            loss_dict = {name: torch.stack(ls).view(self.objects, -1).mean(1)
+                         for name, ls in zip(LOSS_NAMES, zip(*per_image))}
         total = sum(loss_dict.values())
         return total, loss_dict
 
@@ -364,42 +440,46 @@ class MaskRCNN(nn.Module):
 
     def _forward_eval(self, image_hw, proposals: Proposals, roi_feats
                       ) -> Detections:
+        """Detections of images ``[E, ...]`` at once: one RoI gather, one
+        pass of each head (each object's through its own weights), one K3
+        call over every image's candidates."""
         cfg = self.roi
         h, w = image_hw
-        outs = []
-        for i, feats in enumerate(roi_feats):
-            p_boxes, p_valid = proposals.boxes[i], proposals.valid[i]
-            box_feats = multiscale_roi_align(
-                feats, p_boxes, (cfg.box_roi_size, cfg.box_roi_size),
-                ROI_SCALES)
-            cls_logits, box_deltas = self.box_head(box_feats)
-            probs = F.softmax(cls_logits, dim=-1)  # [P, C]
-            n, c = probs.shape
-            # (roi, class) pairs of the foreground classes, flattened
-            boxes_f = clip_boxes(decode_boxes(
-                box_deltas[:, 1:], p_boxes[:, None].expand(n, c - 1, 4)
-            ).reshape(-1, 4), (h, w))
-            scores_f = probs[:, 1:].reshape(-1)
-            classes_f = torch.arange(1, c, device=probs.device).repeat(n)
-            valid_f = (p_valid[:, None].expand(n, c - 1).reshape(-1)
-                       & (scores_f > cfg.score_thresh))
-            idx, keep = batched_nms(boxes_f, scores_f, classes_f,
-                                    cfg.nms_thresh, cfg.detections_per_img,
-                                    valid=valid_f)
-            safe = idx.long().clamp_min(0)
-            det_boxes = torch.where(keep[:, None], boxes_f[safe], 0.0)
-            det_scores = torch.where(keep, scores_f[safe], 0.0)
-            det_classes = torch.where(keep, classes_f[safe], 0)
+        p_boxes, p_valid = proposals.boxes, proposals.valid  # [E, P(, 4)]
+        e, n = p_valid.shape
+        cls_logits, box_deltas = self._head(
+            self.box_head, multiscale_roi_align(
+                roi_feats, p_boxes, (cfg.box_roi_size, cfg.box_roi_size),
+                ROI_SCALES))
+        probs = F.softmax(cls_logits, dim=-1)  # [E, P, C]
+        c = probs.shape[-1]
+        # (roi, class) pairs of the foreground classes, flattened
+        boxes_f = clip_boxes(decode_boxes(
+            box_deltas[:, :, 1:], p_boxes[:, :, None].expand(e, n, c - 1, 4)
+        ).reshape(e, -1, 4), (h, w))
+        scores_f = probs[:, :, 1:].reshape(e, -1)
+        classes_f = torch.arange(1, c, device=probs.device).repeat(n)
+        valid_f = (p_valid[:, :, None].expand(e, n, c - 1).reshape(e, -1)
+                   & (scores_f > cfg.score_thresh))
+        idx, keep = batched_nms(boxes_f, scores_f, classes_f,
+                                cfg.nms_thresh, cfg.detections_per_img,
+                                valid=valid_f)  # [E, K]
+        safe = idx.long().clamp_min(0)
+        det_boxes = torch.where(keep[..., None], torch.gather(
+            boxes_f, 1, safe[..., None].expand(-1, -1, 4)), 0.0)
+        det_scores = torch.where(keep, torch.gather(scores_f, 1, safe), 0.0)
+        det_classes = torch.where(keep, classes_f[safe], 0)
 
-            m_feats = multiscale_roi_align(
-                feats, det_boxes, (cfg.mask_roi_size, cfg.mask_roi_size),
-                ROI_SCALES)
-            m_logits = self.mask_head(m_feats)  # [K, 2m, 2m, C]
-            sel = m_logits.gather(
-                3, det_classes[:, None, None, None].expand(
-                    -1, m_logits.shape[1], m_logits.shape[2], 1))[..., 0]
-            pasted = paste_masks(torch.sigmoid(sel), det_boxes, (h, w))
-            pasted = pasted * keep[:, None, None]
-            outs.append((det_boxes, det_scores, det_classes.int(), pasted,
-                         keep))
-        return Detections(*(torch.stack(t) for t in zip(*outs)))
+        (m_logits,) = self._head(
+            self.mask_head, multiscale_roi_align(
+                roi_feats, det_boxes, (cfg.mask_roi_size, cfg.mask_roi_size),
+                ROI_SCALES))  # [E, K, 2m, 2m, C]
+        k, m = m_logits.shape[1], m_logits.shape[2]
+        sel = m_logits.gather(
+            4, det_classes[:, :, None, None, None].expand(
+                -1, -1, m, m_logits.shape[3], 1))[..., 0]
+        pasted = paste_masks(torch.sigmoid(sel).reshape(e * k, m, -1),
+                             det_boxes.reshape(e * k, 4), (h, w))
+        pasted = pasted.view(e, k, h, w) * keep[:, :, None, None]
+        return Detections(det_boxes, det_scores, det_classes.int(), pasted,
+                          keep)

@@ -53,7 +53,14 @@ class Conv(nn.Module):
 class Dense(nn.Module):
     """``nn.Dense`` of flax: weight ``[out, in]`` (float32, the transpose
     of the flax kernel), bias ``[out]``; input and weights cast to
-    ``dtype``."""
+    ``dtype``.
+
+    ``objects`` is 1 but in an object-stacked model (``models/stacked.py``):
+    the weight is then the objects' ``[out, in]`` blocks along dim 0, the
+    input ``[objects, N, in]``, and object o's rows meet object o's block
+    in one batched matrix product."""
+
+    objects = 1
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32):
@@ -63,8 +70,12 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
+        if self.objects == 1:
+            return F.linear(x.to(self.dtype), w, b)
+        o = self.objects
+        return torch.baddbmm(b.view(o, 1, -1), x.to(self.dtype),
+                             w.view(o, -1, w.shape[1]).transpose(1, 2))
 
 
 class ConvTranspose(nn.Module):
@@ -72,20 +83,31 @@ class ConvTranspose(nn.Module):
     equal to the stride: each input pixel becomes one ``k x k`` output
     tile. The weight is stored ``[O, I, kh, kw]`` (the neuron axis first,
     as every other weight of the port) with the taps flipped from the flax
-    kernel, and handed to ``conv_transpose2d`` as ``[I, O, kh, kw]``."""
+    kernel, and handed to ``conv_transpose2d`` as ``[I, O, kh, kw]``.
+    ``groups`` is 1 but in an object-stacked model, where each object's
+    ``[O, I]`` block of dim 0 is transposed on its own."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride = kernel
         self.dtype = dtype
+        self.groups = 1
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(
-            x.to(self.dtype), self.weight.to(self.dtype).transpose(0, 1),
-            self.bias.to(self.dtype), stride=self.stride)
+        g = self.groups
+        w = self.weight.to(self.dtype)
+        if g == 1:
+            w = w.transpose(0, 1)
+        else:
+            o, i, kh, kw = w.shape
+            w = w.view(g, o // g, i, kh, kw).transpose(1, 2).reshape(
+                g * i, o // g, kh, kw)
+        return F.conv_transpose2d(x.to(self.dtype), w,
+                                  self.bias.to(self.dtype), stride=self.stride,
+                                  groups=g)
 
 
 class FrozenScaleBias(nn.Module):

@@ -85,10 +85,28 @@ def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def unfold_objects(x: torch.Tensor, objects: int) -> torch.Tensor:
+    """An object-stacked map ``[B, O·C, H, W]`` (object o in channel block
+    o) → ``[O·B, H, W, C]``, image o·B + b holding object o's block of
+    image b: a copy under ``channels_last`` when O > 1, a view when O is
+    1."""
+    b, oc, h, w = x.shape
+    x = x.permute(0, 2, 3, 1)
+    if objects == 1:
+        return x
+    return x.reshape(b, h, w, objects, oc // objects).permute(
+        3, 0, 1, 2, 4).reshape(objects * b, h, w, oc // objects)
+
+
 class RPNHead(nn.Module):
     """Shared conv head: 3x3 + ReLU → (objectness [A], deltas [4A]) per
     cell. Returns per-level logits ``[B, H·W·A]`` and deltas
-    ``[B, H·W·A, 4]`` in float32, in the anchors' (h, w, a) order."""
+    ``[B, H·W·A, 4]`` in float32, in the anchors' (h, w, a) order. In an
+    object-stacked model (``objects`` > 1, grouped convolutions) the
+    outputs are each object's, images in ``unfold_objects`` order
+    (``[O·B, ...]``)."""
+
+    objects = 1
 
     def __init__(self, channels: int = 256, num_anchors: int = 3,
                  dtype: torch.dtype = torch.float32):
@@ -103,13 +121,13 @@ class RPNHead(nn.Module):
     def forward(self, feats: Sequence[torch.Tensor]
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         logits, deltas = [], []
+        n = feats[0].shape[0] * self.objects
         for f in feats:
             t = F.relu(self.conv(f))
-            b = f.shape[0]
-            logits.append(self.cls_logits(t).float().permute(0, 2, 3, 1)
-                          .reshape(b, -1))
-            deltas.append(self.bbox_pred(t).float().permute(0, 2, 3, 1)
-                          .reshape(b, -1, 4))
+            logits.append(unfold_objects(self.cls_logits(t).float(),
+                                         self.objects).reshape(n, -1))
+            deltas.append(unfold_objects(self.bbox_pred(t).float(),
+                                         self.objects).reshape(n, -1, 4))
         return logits, deltas
 
 
@@ -140,22 +158,19 @@ def select_proposals(cfg: RPNConfig, anchors: Sequence[torch.Tensor],
     probs = torch.sigmoid(torch.cat(all_scores, 1))
     levels = torch.cat(all_levels)
     valid = torch.cat(all_valid, 1)
-    out_boxes, out_scores, out_valid = [], [], []
-    for i in range(boxes.shape[0]):
-        if cfg.use_fast_nms:
-            idx, keep = fast_nms(boxes[i], probs[i], cfg.nms_thresh,
-                                 cfg.post_nms_top_n, valid=valid[i],
-                                 ids=levels)
-        else:
-            idx, keep = batched_nms(boxes[i], probs[i], levels,
-                                    cfg.nms_thresh, cfg.post_nms_top_n,
-                                    valid=valid[i])
-        safe = idx.long().clamp_min(0)
-        out_boxes.append(torch.where(keep[:, None], boxes[i][safe], 0.0))
-        out_scores.append(torch.where(keep, probs[i][safe], 0.0))
-        out_valid.append(keep)
-    return Proposals(torch.stack(out_boxes), torch.stack(out_scores),
-                     torch.stack(out_valid))
+    if cfg.use_fast_nms:
+        idx, keep = map(torch.stack, zip(*(
+            fast_nms(boxes[i], probs[i], cfg.nms_thresh, cfg.post_nms_top_n,
+                     valid=valid[i], ids=levels)
+            for i in range(boxes.shape[0]))))
+    else:  # one K3 call over every image, each shifted by its own maximum
+        idx, keep = batched_nms(boxes, probs, levels, cfg.nms_thresh,
+                                cfg.post_nms_top_n, valid=valid)
+    safe = idx.long().clamp_min(0)
+    return Proposals(
+        torch.where(keep[..., None], torch.gather(
+            boxes, 1, safe[..., None].expand(-1, -1, 4)), 0.0),
+        torch.where(keep, torch.gather(probs, 1, safe), 0.0), keep)
 
 
 class RPNTargets(NamedTuple):

@@ -1,8 +1,10 @@
 """Objects as a batch axis: several objects' copies of a model folded into
 its channel axis, the port's counterpart of the JAX package's ``vmap`` over
-object groups (``e_osvos_tpu/engine/one_shot.py``, ``batch_objects``).
+object groups (``e_osvos_tpu/engine/one_shot.py`` and
+``one_shot_detection.py``, ``batch_objects``).
 
-An object-stacked DeepLab holds O objects' weights in one model:
+An object-stacked DeepLab or Mask R-CNN holds O objects' weights in one
+model:
 
   * every convolution has O times its output channels, the objects' weights
     concatenated along dim 0, and runs with ``groups=O``; the stem reads the
@@ -11,22 +13,30 @@ An object-stacked DeepLab holds O objects' weights in one model:
     (``[B, O·3, H, W]``) grouped;
   * every GroupNorm has O·G groups over O·C channels (the K1/K2 kernels
     take any C), every frozen-BN affine its buffers repeated O times;
-  * the two channel concatenations (ASPP's branches, the decoder's ASPP and
-    low-level features) are ordered object by object
+  * DeepLab: the two channel concatenations (ASPP's branches, the
+    decoder's ASPP and low-level features) are ordered object by object
     (``deeplab.cat_channels``), so each group reads its own object's
-    features;
-  * the classifier gives one logit plane an object: ``[B, H, W, O]``.
+    features; the classifier gives one logit plane an object: ``[B, H, W,
+    O]``;
+  * Mask R-CNN: the backbone, FPN and RPN head run folded; at the RPN the
+    objects unfold into O·B images (``rpn.unfold_objects``: image o·B + b),
+    over which proposals, targets, RoI pooling, NMS and pasting run
+    unchanged; the box head's dense layers are one batched matrix product
+    over objects (``Dense.objects``), the mask head's convolutions and
+    deconvolution grouped. Every per-object argument and result carries a
+    leading O (``mask_rcnn.MaskRCNN``).
 
 The objects never mix: object o's block of every tensor depends on object
 o's block of the weights alone, so a gradient of the sum of the objects'
 losses is each object's own gradient, and the learned optimizer's update
 ``p ← p − lr·g`` (lrs repeated along dim 0, the neuron axis) is the objects'
 updates side by side. ``torch.func.vmap`` cannot pass through the kernels'
-ctypes calls; grouped convolutions and wider norms do the same work.
+ctypes calls; grouped convolutions, wider norms and batched products do the
+same work.
 
 Entries are stacked along dim 0 (``stack_objects``); any model apply that
-is not a DeepLab's runs its objects in turn over the stacked entries
-(``object_stacked_apply``), with the same interface.
+is not a DeepLab's or a Mask R-CNN's runs its objects in turn over the
+stacked entries (``object_stacked_apply``), with the same interface.
 """
 
 from __future__ import annotations
@@ -39,10 +49,14 @@ import torch
 from torch import nn
 
 from e_osvos_torch.models.deeplab import _SegmentationModel
-from e_osvos_torch.models.resnet import Conv, FrozenScaleBias
+from e_osvos_torch.models.mask_rcnn import MaskRCNN
+from e_osvos_torch.models.resnet import (
+    Conv, ConvTranspose, Dense, FrozenScaleBias,
+)
 from e_osvos_torch.ops.group_norm import FusedGroupNorm
 
 Params = Dict[str, torch.Tensor]
+STACKABLE = (_SegmentationModel, MaskRCNN)
 
 
 def stack_objects(per_object: Sequence[Mapping[str, torch.Tensor]]
@@ -86,19 +100,19 @@ def unstack_objects(params: Mapping[str, torch.Tensor], objects: int
 
 
 def stack_model(model: nn.Module, objects: int) -> nn.Module:
-    """An object-stacked copy of a DeepLab: ``objects`` copies of its
-    weights and buffers side by side, grouped convolutions, wider norms and
-    object-ordered concatenations."""
-    if not isinstance(model, _SegmentationModel):
+    """An object-stacked copy of a DeepLab or a Mask R-CNN: ``objects``
+    copies of its weights and buffers side by side, grouped convolutions,
+    wider norms, object-ordered concatenations, batched dense layers."""
+    if not isinstance(model, STACKABLE):
         raise TypeError(f"cannot stack a {type(model).__name__}")
     stacked = copy.deepcopy(model)
     with torch.no_grad():
         for mod in stacked.modules():
-            if isinstance(mod, Conv):
+            if isinstance(mod, (Conv, ConvTranspose)):
                 mod.groups = objects
             elif isinstance(mod, FusedGroupNorm):
                 mod.num_groups *= objects
-            elif not isinstance(mod, FrozenScaleBias) and any(
+            elif not isinstance(mod, (FrozenScaleBias, Dense)) and any(
                     True for _ in mod.parameters(recurse=False)):
                 raise TypeError(f"cannot stack a {type(mod).__name__}")
             if hasattr(mod, "objects"):
@@ -110,10 +124,11 @@ def stack_model(model: nn.Module, objects: int) -> nn.Module:
     return stacked
 
 
-class _StackedDeepLab:
-    """The object-stacked form of a DeepLab. Entries a call's ``params``
-    lacks (the frozen-BN buffers of a learned init without them) come from
-    the template model as it is at the call, stacked."""
+class _StackedModel:
+    """The object-stacked form of a DeepLab or a Mask R-CNN. Entries a
+    call's ``params`` lacks (the frozen-BN buffers of a learned init
+    without them) come from the template model as it is at the call,
+    stacked."""
 
     def __init__(self, model: nn.Module, objects: int):
         self._template = weakref.ref(model)
@@ -121,7 +136,7 @@ class _StackedDeepLab:
         self.model = stack_model(model, objects)
         self._names = frozenset(model.state_dict())
 
-    def __call__(self, params, imgs: torch.Tensor) -> torch.Tensor:
+    def __call__(self, params, imgs: torch.Tensor, *args, **kwargs):
         missing = self._names - params.keys()
         if missing:
             state = self._template().state_dict()
@@ -130,27 +145,30 @@ class _StackedDeepLab:
         if imgs.dim() == 5:  # [O, B, H, W, 3]: each object's own images
             o, b, h, w, c = imgs.shape
             imgs = imgs.permute(1, 2, 3, 0, 4).reshape(b, h, w, o * c)
-        return torch.func.functional_call(self.model, params, (imgs,))
+        return torch.func.functional_call(self.model, params,
+                                          (imgs,) + args, kwargs)
 
 
-_STACKED: "weakref.WeakKeyDictionary[nn.Module, Dict[int, _StackedDeepLab]]" \
+_STACKED: "weakref.WeakKeyDictionary[nn.Module, Dict[int, _StackedModel]]" \
     = weakref.WeakKeyDictionary()
 
 
 def object_stacked_apply(model_apply: Callable, objects: int) -> Callable:
-    """``apply(params, imgs)`` of ``objects`` objects at once over stacked
-    ``params`` (``stack_objects``): ``imgs`` is ``[B, H, W, 3]`` shared by
-    the objects or ``[O, B, H, W, 3]``, one batch an object; the logits are
-    ``[B, H, W, O]``, object o's in plane o (a one-class model).
+    """``apply(params, imgs, ...)`` of ``objects`` objects at once over
+    stacked ``params`` (``stack_objects``): ``imgs`` is ``[B, H, W, 3]``
+    shared by the objects or ``[O, B, H, W, 3]``, one batch an object. A
+    one-class segmentation model gives the logits ``[B, H, W, O]``, object
+    o's in plane o; a Mask R-CNN takes and gives every per-object argument
+    and result with a leading O (``mask_rcnn.MaskRCNN``).
 
-    A DeepLab's ``functional_apply`` gets its object-stacked model (built
-    once per model and object count); any other apply runs the objects in
-    turn on their views of ``params``."""
+    The ``functional_apply`` of a DeepLab or a Mask R-CNN gets its
+    object-stacked model (built once per model and object count); any
+    other apply runs the objects in turn on their views of ``params``."""
     model = getattr(model_apply, "model", None)
-    if isinstance(model, _SegmentationModel):
+    if isinstance(model, STACKABLE):
         per_count = _STACKED.setdefault(model, {})
         if objects not in per_count:
-            per_count[objects] = _StackedDeepLab(model, objects)
+            per_count[objects] = _StackedModel(model, objects)
         return per_count[objects]
 
     def apply(params, imgs: torch.Tensor) -> torch.Tensor:

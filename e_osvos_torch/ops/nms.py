@@ -73,12 +73,18 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor, ids: torch.Tensor,
                 valid: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy NMS in which boxes of different ``ids`` never suppress each
-    other (torchvision ``batched_nms`` semantics)."""
-    if boxes.shape[0] == 0:
-        return (torch.full((max_out,), -1, dtype=torch.int32,
+    other (torchvision ``batched_nms`` semantics). Boxes ``[B, N, 4]``
+    (scores and valid ``[B, N]``, ids ``[N]`` or ``[B, N]``) are B images
+    in one call, each shifted by its own largest coordinate, as under the
+    JAX package's ``vmap``; the result is ``[B, max_out]``."""
+    lead = tuple(boxes.shape[:-2])
+    if boxes.shape[-2] == 0:
+        return (torch.full(lead + (max_out,), -1, dtype=torch.int32,
                            device=boxes.device),
-                torch.zeros((max_out,), dtype=torch.bool, device=boxes.device))
-    shifted = boxes + ids.to(boxes.dtype)[:, None] * (boxes.max() + 1.0)
+                torch.zeros(lead + (max_out,), dtype=torch.bool,
+                            device=boxes.device))
+    top = boxes.amax((-2, -1), keepdim=True)
+    shifted = boxes + ids.to(boxes.dtype)[..., None] * (top + 1.0)
     return cuda_nms.greedy_nms(shifted.float().contiguous(),
                                scores.float().contiguous(),
                                _valid(scores, valid).contiguous(),

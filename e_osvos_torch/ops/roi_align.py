@@ -122,20 +122,33 @@ def multiscale_roi_align(feats: Sequence[torch.Tensor], boxes: torch.Tensor,
     """FPN ROI-align: ``feats`` = [P2..P5] as ``[H_l, W_l, C]``, ``boxes
     [N, 4]`` in image coordinates → ``[N, oh, ow, C]`` in the features'
     dtype. Each roi pools from its assigned level of one flattened
-    ``[Σ H_l·W_l, C]`` buffer."""
+    ``[Σ H_l·W_l, C]`` buffer.
+
+    Several images at once: ``feats`` as ``[E, H_l, W_l, C]`` and ``boxes
+    [E, N, 4]`` (image e's rois on image e's maps) → ``[E, N, oh, ow, C]``,
+    one gather for all of them; level l holds the images' maps one after
+    another."""
+    single = boxes.dim() == 2
+    if single:
+        feats, boxes = [f[None] for f in feats], boxes[None]
+    e, n = boxes.shape[:2]
     c = feats[0].shape[-1]
     dev = boxes.device
-    hs = [f.shape[0] for f in feats]
-    ws = [f.shape[1] for f in feats]
+    hs = [f.shape[1] for f in feats]
+    ws = [f.shape[2] for f in feats]
     offsets: List[int] = [0]
     for h, w in zip(hs[:-1], ws[:-1]):
-        offsets.append(offsets[-1] + h * w)
+        offsets.append(offsets[-1] + e * h * w)
     flat = torch.cat([f.reshape(-1, c) for f in feats], 0)
 
+    boxes = boxes.reshape(e * n, 4)
     levels = fpn_level_assignment(boxes, len(feats))
     table = _level_table(tuple(hs), tuple(ws), tuple(offsets),
                          tuple(spatial_scales), dev)
     h_l, w_l, off = table[0, levels].long(), table[1, levels].long(), table[2, levels].long()
+    if e > 1:  # image e's map of a level starts e maps into it
+        image = torch.arange(e, device=dev).repeat_interleave(n)
+        off = off + image * h_l * w_l
     scale = table[3, levels]
     yy, xx = _sample_coords(boxes * scale[:, None], output_size,
                             sampling_ratio, aligned)
@@ -143,8 +156,9 @@ def multiscale_roi_align(feats: Sequence[torch.Tensor], boxes: torch.Tensor,
     def per_roi(t):
         return t[:, None, None, None, None]
 
-    return _gather_pool(flat, yy, xx, per_roi(h_l), per_roi(w_l),
-                        per_roi(off), flat.dtype)
+    out = _gather_pool(flat, yy, xx, per_roi(h_l), per_roi(w_l),
+                       per_roi(off), flat.dtype)
+    return out if single else out.view((e, n) + tuple(out.shape[1:]))
 
 
 def stack_roi_align_1ch(maps: torch.Tensor, boxes: torch.Tensor,

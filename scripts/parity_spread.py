@@ -3,6 +3,7 @@ CPU: the numbers the parity tests and ``chip_smoke.py`` quote for the
 tolerances and seeds they chose.
 
     python scripts/parity_spread.py slice [--threads 1]
+    python scripts/parity_spread.py detection-stream
     python scripts/parity_spread.py detection-meta
     python scripts/parity_spread.py detection-parent
     python scripts/parity_spread.py parent-border
@@ -17,6 +18,12 @@ Each prints JSON lines:
   (the port's windows on JAX's parameters, carried boxes and draws; its
   refit from JAX's fine-tuned parameters). ``--threads 1`` runs XLA and
   torch on one thread.
+* ``detection-stream``: the four 2-object sequences of
+  test_torch_port_detection_entry.py's ``eval_stream`` test, each at
+  stream position 0 and 1 (pairs seq00/seq01 and seq02/seq03 in both
+  orders): the pixels of the JAX row that weights scaled by 1 ± 1e-6
+  move, and the pixels where the port's row (on JAX's draws) differs from
+  JAX's.
 * ``detection-meta``: the JAX detection meta step of
   test_torch_port_detection_meta.py (per-step mode) on task seeds 0-3,
   weights x (1, 1 ± 1e-6): per-task losses.
@@ -28,6 +35,13 @@ Each prints JSON lines:
   augmentation: the largest difference of each tensor's gradient over its
   largest entry (the warp's fringe pixels differ by rounding; the
   border's max-pool ties route the stem's gradient).
+* ``detection-batched``: the 2-object sequence of
+  test_torch_port_detection_batched.py through the JAX evaluator with
+  objects batched and through the port's, in both window loops: the JAX
+  run with its weights scaled by 1 ± eps against itself; the port batched
+  on JAX's draws against JAX; the port batched against its own loop on
+  its own draws, and its loop against itself under the same scaling
+  (probabilities; the seconds of each JAX run).
 * ``small-meta``: chip_smoke.py's small detection meta step on this CPU
   for each of its task seeds, weights x (1 ± 1e-6): the meta-loss's
   relative move and the gradient entries over the check's limit.
@@ -154,6 +168,93 @@ def slice_spread():
     out(stage="refit from JAX's fine-tuned params", rel_diff=max(
         float((got[k].detach() - want[k]).abs().max() / want[k].abs().max())
         for k in want))
+
+
+def detection_batched():
+    import time
+
+    import numpy as np
+
+    import test_torch_port_detection_batched as D
+
+    def run_jax(j_ev, variables, pair):
+        meta = D.JMetaParams(model_init=variables,
+                             log_init_lr={"params": pair["lrs"]})
+        t0 = time.perf_counter()
+        res = j_ev.eval_sequence(D.JSyntheticVOSIndex(**D.INDEX_KW), "seq00",
+                                 meta, D.jax.random.PRNGKey(D.KEY))
+        return np.asarray(res["probs"]), time.perf_counter() - t0
+
+    def run_port(pair, fused, draws=True, **kw):
+        _, ev = D.evaluators(pair, fused, **kw)
+        if draws:
+            ev.sample_draws = D.object_draws(
+                pair, D.jax.random.PRNGKey(D.KEY), D.SEED, ev.cfg)[0]
+        return ev.eval_sequence(D.SyntheticVOSIndex(**D.INDEX_KW), "seq00",
+                                pair["meta"], D.SEED)["probs"].numpy()
+
+    base = D.make_pair()
+    for fused in (False, True):
+        loop = "fused" if fused else "host"
+        j_ev, _ = D.evaluators(base, fused)
+        want, secs = run_jax(j_ev, base["variables"], base)
+        out(loop=loop, side="jax", seconds=secs)
+        for s in (1 + 1e-6, 1 - 1e-6, 1 + 3e-6, 1 - 3e-6):
+            p, _ = run_jax(j_ev, _scaled(base["variables"], s), base)
+            out(loop=loop, side="jax", scale=s,
+                prob_spread=float(np.abs(p - want).max()))
+        got = run_port(base, fused)
+        out(loop=loop, side="port batched vs jax",
+            prob_diff=float(np.abs(got - want).max()),
+            mean_diff=float(np.abs(got - want).mean()))
+        own = run_port(base, fused, draws=False)
+        in_turn = run_port(base, fused, draws=False, batch_objects=False)
+        out(loop=loop, side="port batched vs port loop",
+            prob_diff=float(np.abs(own - in_turn).max()))
+        for s in (1 + 1e-6, 1 - 1e-6):
+            scaled = dict(base)
+            scaled["meta"] = base["meta"]._replace(model_init={
+                k: v * np.float32(s)
+                for k, v in base["meta"].model_init.items()})
+            p = run_port(scaled, fused, draws=False, batch_objects=False)
+            out(loop=loop, side="port loop", scale=s,
+                prob_spread=float(np.abs(p - in_turn).max()))
+
+
+def detection_stream():
+    import jax
+    import numpy as np
+
+    import test_torch_port_detection_entry as E
+
+    pair = E.make_pair()
+    j_ev, ev = E._evaluators(pair)
+    key, seed = jax.random.PRNGKey(11), 9
+    kw = dict(E.INDEX_KW, num_sequences=4)
+    j_index, index = E.JSyntheticVOSIndex(**kw), E.SyntheticVOSIndex(**kw)
+
+    def jax_rows(names, s):
+        meta = pair["j_meta"]._replace(
+            model_init=_scaled(pair["variables"], s))
+        return j_ev.eval_stream(j_index, names, meta, key)
+
+    for names in (["seq00", "seq01"], ["seq01", "seq00"],
+                  ["seq02", "seq03"], ["seq03", "seq02"]):
+        want = jax_rows(names, 1.0)
+        moved = {n: 0 for n in names}
+        for s in (1 + 1e-6, 1 - 1e-6):
+            got = jax_rows(names, s)
+            for n in names:
+                moved[n] = max(moved[n], int((got[n] != want[n]).sum()))
+        ev.sample_draws = E.draws_by_seed({
+            E.fold_in(E.fold_in(seed, i), 0): E.JaxDraws(
+                pair["jmodel"], pair["variables"],
+                jax.random.fold_in(jax.random.fold_in(key, i), 0), ev.cfg)
+            for i in range(len(names))})
+        port = ev.eval_stream(index, names, pair["meta"], seed)
+        for i, n in enumerate(names):
+            out(seq=n, position=i, jax_pixels_moved_by_1e6=moved[n],
+                port_vs_jax_pixels=int((port[n] != want[n]).sum()))
 
 
 def detection_meta():
@@ -283,9 +384,10 @@ def small_meta():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=["slice", "detection-meta",
-                                     "detection-parent", "parent-border",
-                                     "small-meta"])
+    ap.add_argument("what", choices=["slice", "detection-batched",
+                                     "detection-stream",
+                                     "detection-meta", "detection-parent",
+                                     "parent-border", "small-meta"])
     ap.add_argument("--threads", type=int, default=0,
                     help="XLA and torch intra-op threads (0: default)")
     args = ap.parse_args()
@@ -296,7 +398,9 @@ def main():
         import torch
 
         torch.set_num_threads(args.threads)
-    {"slice": slice_spread, "detection-meta": detection_meta,
+    {"slice": slice_spread, "detection-batched": detection_batched,
+     "detection-stream": detection_stream,
+     "detection-meta": detection_meta,
      "detection-parent": detection_parent, "parent-border": parent_border,
      "small-meta": small_meta}[args.what]()
 

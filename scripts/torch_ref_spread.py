@@ -2,12 +2,14 @@
 
     python3 scripts/torch_ref_spread.py [--seeds 3 4 5 6 8]
         [--perturb 1.1920929e-07 9.5367432e-07] [--repeats 4] [--card]
-        [--out PATH]
+        [--batched] [--out PATH]
 
 chip_smoke.py holds the card against the CPU within 1e-3 in probability on
 a tiny fp32 Mask R-CNN tracking a 2-object 5-frame 64x64 synthetic sequence
-(``chip_smoke.detection_reference``). For each seed of that sequence this
-prints one JSON line per witness, each against the plain CPU run:
+(``chip_smoke.detection_reference``), the objects in turn and, with
+``--batched``, batched (one object-stacked model). For each seed of that
+sequence this prints one JSON line per witness, each against the plain CPU
+run:
 
 * ``cpu_perturbed``: the CPU with every weight scaled by ``1 ± eps``, one
   line per ``--perturb`` value: the sequence's own sensitivity to rounding,
@@ -55,7 +57,7 @@ DECISIONS = (
 )
 
 
-def traced(device, seed, perturb=0.0):
+def traced(device, seed, perturb=0.0, batched=False):
     """``chip_smoke.detection_reference`` with every call of each
     decision recorded on the host: (result, {name: [outputs]})."""
     trace, saved = {name: [] for name, *_ in DECISIONS}, []
@@ -73,7 +75,8 @@ def traced(device, seed, perturb=0.0):
             fn = getattr(module, attr)
             saved.append((module, attr, fn))
             setattr(module, attr, recorder(name, fn, part))
-        res, _ = chip_smoke.detection_reference(device, seed, perturb)
+        res, _ = chip_smoke.detection_reference(device, seed, perturb,
+                                                batch_objects=batched)
     finally:
         for module, attr, fn in saved:
             setattr(module, attr, fn)
@@ -106,6 +109,9 @@ def main() -> int:
                     default=[2.0 ** -23, 2.0 ** -20])
     ap.add_argument("--repeats", type=int, default=4)
     ap.add_argument("--card", action="store_true")
+    ap.add_argument("--batched", action="store_true",
+                    help="the objects batched (chip_smoke's batched "
+                    "reference)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -125,10 +131,11 @@ def main() -> int:
             out.write(line + "\n")
 
     for seed in args.seeds:
-        ref, ref_trace = traced("cpu", seed)
+        ref, ref_trace = traced("cpu", seed, batched=args.batched)
         for eps in args.perturb:
-            got = traced("cpu", seed, perturb=eps)
-            emit({"seed": seed, "witness": "cpu_perturbed", "eps": eps,
+            got = traced("cpu", seed, perturb=eps, batched=args.batched)
+            emit({"seed": seed, "batched": args.batched,
+                  "witness": "cpu_perturbed", "eps": eps,
                   "runs": [compare(ref, ref_trace, *got)]})
         if not args.card:
             continue
@@ -137,7 +144,7 @@ def main() -> int:
             torch.backends.cudnn.deterministic = det
             torch.backends.cudnn.benchmark = False
             runs = [compare(ref, ref_trace,
-                            *traced("cuda", seed))
+                            *traced("cuda", seed, batched=args.batched))
                     for _ in range(args.repeats)]
             emit({"seed": seed, "witness": witness, "runs": runs})
         torch.use_deterministic_algorithms(False)

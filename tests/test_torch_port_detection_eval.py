@@ -94,7 +94,8 @@ def test_detection_eval_sequence_matches_jax():
                       log_init_lr=lr_tree_from_jax(lrs))
     cfg = DetectionOneShotConfig(augment=AugmentConfig(**AUG_KW), **CFG_KW)
     ev = DetectionOneShotEvaluator(model, MetaOptimConfig(use_log_init_lr=False),
-                                   cfg, fused_ona=True, device="cpu")
+                                   cfg, fused_ona=True, device="cpu",
+                                   batch_objects=False)
     seed = 3
     draws = {fold_in(seed, gi): JaxDraws(jmodel, variables,
                                          jax.random.fold_in(key, gi), cfg)

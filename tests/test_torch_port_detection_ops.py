@@ -20,6 +20,17 @@ from e_osvos_tpu.ops.pallas_nms import nms_pallas
 from e_osvos_torch.ops import boxes, cuda_nms, losses, nms, roi_align
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads while this module runs: the tier-1 command
+    shares the host's cores among six workers, where a worker's default of
+    one thread a core oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 

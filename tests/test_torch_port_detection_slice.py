@@ -13,6 +13,7 @@ the port through its one draw function, ``sample_draws``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from e_osvos_tpu.data.synthetic import SyntheticVOSIndex as JSyntheticVOSIndex
@@ -49,6 +50,17 @@ from test_torch_port_detection_models import (
     train_draws_from_key,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads while this module runs: the tier-1 command
+    shares the host's cores among six workers, where a worker's default of
+    one thread a core oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 T = 5
 AUG_KW = dict(scale_min=1.0, scale_max=1.0, rot_deg=0.0, brightness=0.0,
               contrast=0.0, saturation=0.0, flip_prob=0.0,
@@ -72,6 +84,12 @@ class JaxDraws:
         self.n_rois = jmodel.rpn.post_nms_top_n + 1
         self.calls = {"fine_tune": 0, "frames": 0, "refit": 0}
 
+    def window_key(self, w):
+        return jax.random.fold_in(self.k_win, w)
+
+    def refit_key(self, w):
+        return jax.random.fold_in(self.k_ona, w)
+
     def _train(self, keys, batch):
         steps = [train_draws_from_key(
             jax_sample_key(self.jmodel, self.variables, k), batch,
@@ -90,10 +108,10 @@ class JaxDraws:
                                        (count, cfg.batch_size))
             return aug, train
         if kind == "refit":
-            keys = jax.random.split(jax.random.fold_in(self.k_ona, w), count)
+            keys = jax.random.split(self.refit_key(w), count)
             return self._train(keys, 1 + min(cfg.online_adapt_step,
                                              cfg.batch_size))
-        k = jax.random.fold_in(self.k_win, w)
+        k = self.window_key(w)
         frames = []
         for _ in range(count):
             k, k_s = jax.random.split(k)

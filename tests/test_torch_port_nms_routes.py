@@ -23,6 +23,17 @@ from e_osvos_torch.ops import cuda_nms
 from test_torch_port_detection_ops import NMS_CASES, _nms_case, random_boxes
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads while this module runs: the tier-1 command
+    shares the host's cores among six workers, where a worker's default of
+    one thread a core oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---- route L, step by step on CPU tensors
 
 _TILE = cuda_nms.TILE
@@ -320,23 +331,9 @@ def test_cpu_tensors_take_the_twin_on_either_route():
                                         "greedy_nms_l": 0}
 
 
-@pytest.mark.parametrize("greedy_rpn", [False, True])
-def test_detection_sequence_nms_calls_match_the_smoke_formula(monkeypatch,
-                                                             greedy_rpn):
-    """A tiny detection sequence on the CPU makes exactly the K3 calls, by
-    route, that ``chip_smoke.expected_detection_launches`` counts for the
-    card: one a frame in the detection head on route S, and with the greedy
-    RPN one an image of every forward on route L."""
-    import chip_smoke
-    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
-    from e_osvos_torch.data.transforms import AugmentConfig
-    from e_osvos_torch.engine import (
-        DetectionOneShotConfig, DetectionOneShotEvaluator,
-    )
-    from e_osvos_torch.meta_optim import MetaOptimConfig, init_meta_params
-    from e_osvos_torch.models import MaskRCNN, RoIConfig, RPNConfig
-    from e_osvos_torch.ops import cuda_group_norm
-
+def _counting_nms(monkeypatch):
+    """Replace the K3 wrapper by one that counts its calls by route (the
+    wrapper itself counts only launches on the card)."""
     calls = {"greedy_nms": 0, "greedy_nms_s": 0, "greedy_nms_l": 0}
     greedy_nms = cuda_nms.greedy_nms
 
@@ -347,10 +344,20 @@ def test_detection_sequence_nms_calls_match_the_smoke_formula(monkeypatch,
         return greedy_nms(boxes, scores, valid, thr, max_out, route)
 
     monkeypatch.setattr(cuda_nms, "greedy_nms", counting)
-    T = 6
-    index = SyntheticVOSIndex(num_sequences=1, num_frames=T, size=(64, 64),
-                              seed=3)
-    seq = index.sequences["seq00"]
+    return calls
+
+
+def _tiny_detection(greedy_rpn: bool, **ev_kw):
+    """chip_smoke.detection_reference's tiny model and configuration with
+    the default augmentation, in the fused window loop as
+    chip_smoke.build_detection_path runs it."""
+    from e_osvos_torch.data.transforms import AugmentConfig
+    from e_osvos_torch.engine import (
+        DetectionOneShotConfig, DetectionOneShotEvaluator,
+    )
+    from e_osvos_torch.meta_optim import MetaOptimConfig, init_meta_params
+    from e_osvos_torch.models import MaskRCNN, RoIConfig, RPNConfig
+
     cfg = DetectionOneShotConfig(
         num_epochs=2, batch_size=3, online_adapt_step=2,
         online_adapt_epochs=2, proposal_aug_mode="EXTEND",
@@ -364,19 +371,69 @@ def test_detection_sequence_nms_calls_match_the_smoke_formula(monkeypatch,
                                    detections_per_img=1), seed=5,
                      device="cpu")
     meta_cfg = MetaOptimConfig(init_lr=1e-3, use_log_init_lr=False)
-    # the fused window loop, as chip_smoke.build_detection_path runs it
     ev = DetectionOneShotEvaluator(model, meta_cfg, cfg, device="cpu",
-                                   fused_ona=True)
+                                   fused_ona=True, **ev_kw)
+    return ev, init_meta_params(meta_cfg, model)
+
+
+@pytest.mark.parametrize("greedy_rpn", [False, True])
+def test_detection_sequence_nms_calls_match_the_smoke_formula(monkeypatch,
+                                                             greedy_rpn):
+    """A tiny detection sequence on the CPU makes exactly the K3 calls, by
+    route, that ``chip_smoke.expected_detection_launches`` counts for the
+    card: one a frame in the detection head on route S, and with the greedy
+    RPN one a forward (over all its images) on route L."""
+    import chip_smoke
+    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
+    from e_osvos_torch.ops import cuda_group_norm
+
+    calls = _counting_nms(monkeypatch)
+    T = 6
+    index = SyntheticVOSIndex(num_sequences=1, num_frames=T, size=(64, 64),
+                              seed=3)
+    seq = index.sequences["seq00"]
+    ev, meta_params = _tiny_detection(greedy_rpn)
     frames = torch.from_numpy(np.stack([index.get_image("seq00", t)
                                         for t in range(T)]))
     probs = ev._eval_object_group(
-        index, seq, frames, seq.object_groups[0],
-        init_meta_params(meta_cfg, model),
+        index, seq, frames, seq.object_groups[0], meta_params,
         torch.Generator().manual_seed(0), None)
     assert probs.shape == (T, 64, 64)
     want = chip_smoke.expected_detection_launches(
-        cfg, T, 0, cuda_group_norm.LAUNCHES_PER_CALL, greedy_rpn)
+        ev.cfg, T, 0, cuda_group_norm.LAUNCHES_PER_CALL, greedy_rpn)
     assert calls == {k: want[k] for k in calls}
-    # 6 frames; 2 fine-tune steps of 3 images and 4 refit steps of 3
+    # 6 frames; 2 fine-tune steps and 4 refit steps, one forward each
     assert calls["greedy_nms_s"] == 6
-    assert calls["greedy_nms_l"] == (24 if greedy_rpn else 0)
+    assert calls["greedy_nms_l"] == (12 if greedy_rpn else 0)
+
+
+@pytest.mark.parametrize("batched", [True, False])
+@pytest.mark.parametrize("greedy_rpn", [False, True])
+def test_two_object_sequence_nms_calls_match_the_smoke_formula(
+        monkeypatch, greedy_rpn, batched):
+    """``eval_sequence`` of a tiny 2-object sequence on the CPU makes the K3
+    calls that ``expected_detection_launches(objects=2, batched=...)``
+    counts: batched, each call serves both objects (the detection head's
+    over ``[2, N, 4]``, the greedy RPN's over every image of both); in turn,
+    twice one object's."""
+    import chip_smoke
+    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
+    from e_osvos_torch.ops import cuda_group_norm
+
+    calls = _counting_nms(monkeypatch)
+    T = 5
+    index = SyntheticVOSIndex(num_sequences=1, num_frames=T, size=(64, 64),
+                              num_objects=2, seed=1)
+    assert len(index.sequences["seq00"].object_groups) == 2
+    ev, meta_params = _tiny_detection(greedy_rpn, batch_objects=batched)
+    res = ev.eval_sequence(index, "seq00", meta_params, 0)
+    assert tuple(res["probs"].shape) == (2, T, 64, 64)
+    want = chip_smoke.expected_detection_launches(
+        ev.cfg, T, 0, cuda_group_norm.LAUNCHES_PER_CALL, greedy_rpn,
+        objects=2, batched=batched)
+    assert calls == {k: want[k] for k in calls}
+    # 2 windows of 2 inferred frames; 2 fine-tune steps and 2 refit steps
+    # (one refit), one forward each, for each object in turn
+    times = 1 if batched else 2
+    assert calls["greedy_nms_s"] == 4 * times
+    assert calls["greedy_nms_l"] == (8 * times if greedy_rpn else 0)

@@ -9,6 +9,7 @@ float32 arithmetic), so neither side's random draws change the result."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from e_osvos_tpu.data.synthetic import SyntheticVOSIndex as JSyntheticVOSIndex
@@ -32,6 +33,17 @@ from e_osvos_torch.models.jax_weights import (
 )
 from e_osvos_torch.ops.bits import pack_mask_bits
 from test_torch_port_models import randomized_variables
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads while this module runs: the tier-1 command
+    shares the host's cores among six workers, where a worker's default of
+    one thread a core oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 H, W, T = 32, 48, 7
 MODEL_KW = dict(num_classes=1, arch="resnet10", backbone_norm="frozen_bn",

@@ -35,6 +35,17 @@ from e_osvos_torch.models.jax_weights import (
 )
 from test_torch_port_detection_models import random_variables, tiny_pair
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads while this module runs: the tier-1 command
+    shares the host's cores among six workers, where a worker's default of
+    one thread a core oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 H, W = 32, 48
 DEEPLAB_KW = dict(num_classes=1, arch="resnet10", backbone_norm="frozen_bn",
                   head_norm="group16", output_stride=16)
