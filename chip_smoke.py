@@ -159,7 +159,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      formula's (K3 on each rank); seconds, collectives and peak memory a
      rank printed beside one process's; (c)
      ``e_osvos_torch.dryrun.dryrun_multichip(2, backend="gloo")``, beside
-     (a).
+     (a);
+ 20. the ``batch`` norm (flax's BatchNorm with frozen running statistics
+     and a learned affine): (a) a full-width parent ``.pth`` of the
+     resnet50 os16 ``batch``-backbone DeepLabV3+ (GN-16 head, bf16) whose
+     BatchNorm statistics are drawn from a seed (around each norm's input,
+     ``draw_batch_statistics``) and a NEURON-lr ``.model``, loaded by the
+     command line bit for bit alike on the card and on the CPU and equal
+     to the written model (statistics unfolded), then ``cli.evaluate.main``
+     at phase 11's settings on the 1-object sequence: fps and peak memory
+     beside phase 11's frozen-BN run of it, K1/K2 launches of the head's
+     norms by phase 4's formula; (b) that model through
+     ``MetaTrainer.run`` in both modes of phase 6 (a warm-up and two timed
+     steps each): seconds, peak memory, launch counts, every running mean
+     and variance reached by a non-zero meta-gradient and finite; (c) with
+     a ``batch`` backbone, card against CPU: phase 7's single-group
+     evaluation and phase 6's reference meta step (first and second
+     order) within 1e-3, phase 8's 2-object sequence (probabilities
+     within 1e-3 card against CPU and batched against in turn, merged
+     maps equal wherever rounding cannot decide the label), and phase
+     10's detection sequence, whose every detection-head K3 call must
+     pick what the twin picks from the same inputs (its probabilities are
+     printed beside the CPU's own spread: that tiny detector is
+     ill-conditioned with this backbone).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -176,6 +198,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import io
@@ -896,6 +919,7 @@ def run_main_path(shared):
         raise AssertionError("non-finite probabilities on the main path")
     log(f"foreground share of the masks: {float(masks[1:].mean()):.4f}")
     shared["deeplab"] = (meta_params, evaluator, n_gn)
+    shared["main fps"] = MAIN_T / dt
     return counts
 
 
@@ -1130,8 +1154,9 @@ def small_eval_setup():
     return cfg, MetaOptimConfig(init_lr=1e-3, use_log_init_lr=False)
 
 
-def check_reference():
-    """The whole slice on a small fp32 model, on the card and on the CPU."""
+def check_reference(backbone_norm="frozen_bn"):
+    """The whole slice on a small fp32 model, on the card and on the CPU
+    (a ``batch`` backbone's statistics drawn, ``draw_batch_statistics``)."""
     from e_osvos_torch.data.synthetic import SyntheticVOSIndex
     from e_osvos_torch.engine import OneShotEvaluator
     from e_osvos_torch.meta_optim import init_meta_params
@@ -1143,9 +1168,9 @@ def check_reference():
     cfg, meta_cfg = small_eval_setup()
     out = {}
     for device in ("cpu", "cuda"):
-        model = DeepLabV3Plus(num_classes=1, arch="resnet10",
-                              backbone_norm="frozen_bn", output_stride=16,
-                              seed=5, device=device)
+        model = draw_batch_statistics(DeepLabV3Plus(
+            num_classes=1, arch="resnet10", backbone_norm=backbone_norm,
+            output_stride=16, seed=5, device=device), 5)
         meta_params = init_meta_params(meta_cfg, model)
         ev = OneShotEvaluator(functional_apply(model), meta_cfg, cfg,
                               device=device, fused_ona=True)
@@ -1156,18 +1181,29 @@ def check_reference():
             index, seq, frames, seq.object_groups[0], meta_params, gen, None
         ).cpu()
     err = (out["cpu"] - out["cuda"]).abs().max().item()
-    log(f"small fp32 slice, card vs CPU: max |dprob| = {err:.3e} (tol 1e-3)")
+    log(f"small fp32 slice ({backbone_norm} backbone), card vs CPU: max "
+        f"|dprob| = {err:.3e} (tol 1e-3)")
     if not err <= 1e-3:
         raise AssertionError(f"card and CPU disagree on the small slice: {err}")
 
 
-def check_eval_reference():
+def check_eval_reference(backbone_norm="frozen_bn"):
     """``eval_sequence`` of a 2-object 7-frame 32x48 sequence on the small
     fp32 model (the host window loop), the objects batched (the default) on
     the card and on the CPU, and in turn on the card: probabilities and J/F
     within 1e-3 of each other. Then, on the card, ``eval_stream`` over two
     sequences against ``eval_sequence`` with the seeds ``fold_in(seed, i)``
-    (the fused loop, objects batched): identical merged maps."""
+    (the fused loop, objects batched): identical merged maps.
+
+    With a ``batch`` backbone (phase 20; statistics from
+    ``draw_batch_statistics``) the probabilities stay held within 1e-3 both
+    ways, and in place of J/F the merged maps must be identical wherever
+    the pixel's label is decided by more than rounding: the largest of
+    (0.5, each object's probability), which the merge takes, ahead of the
+    next by more than twice the comparison's largest probability gap. J/F
+    are printed: these probabilities are not saturated, so a pixel within
+    rounding of the threshold, or of another object's probability, flips
+    and moves J/F by more than 1e-3. ``eval_stream`` is phase 8's alone."""
     from e_osvos_torch.data.synthetic import SyntheticVOSIndex
     from e_osvos_torch.engine import OneShotEvaluator, fold_in
     from e_osvos_torch.meta_optim import init_meta_params
@@ -1178,9 +1214,9 @@ def check_eval_reference():
     cfg, meta_cfg = small_eval_setup()
     res, built = {}, {}
     for device in ("cpu", "cuda"):
-        model = DeepLabV3Plus(num_classes=1, arch="resnet10",
-                              backbone_norm="frozen_bn", output_stride=16,
-                              seed=5, device=device)
+        model = draw_batch_statistics(DeepLabV3Plus(
+            num_classes=1, arch="resnet10", backbone_norm=backbone_norm,
+            output_stride=16, seed=5, device=device), 5)
         built[device] = (functional_apply(model),
                          init_meta_params(meta_cfg, model))
         ev = OneShotEvaluator(built[device][0], meta_cfg, cfg, device=device)
@@ -1195,19 +1231,39 @@ def check_eval_reference():
                 max(abs(x - y) for k in ("J_per_object", "F_per_object")
                     for x, y in zip(res[a][k], res[b][k])))
 
+    def decided_flips(a, b, err):
+        """Merged pixels that differ between runs a and b, all of them and
+        those whose label leads the runner-up by more than 2·err."""
+        planes = np.concatenate([np.full_like(res[a]["probs"][:1], 0.5),
+                                 res[a]["probs"]], 0)
+        top = np.sort(planes, 0)
+        decided = top[-1] - top[-2] > 2 * err
+        differ = res[a]["merged"] != res[b]["merged"]
+        return int(differ.sum()), int(differ[decided].sum())
+
     cpu_err, cpu_jf = gap("cpu", "cuda")
     loop_err, loop_jf = gap("loop", "cuda")
-    log(f"small fp32 eval_sequence (2 objects, host window loop), objects "
-        f"batched, card vs CPU: max |dprob| = {cpu_err:.3e}, max |dJ|, |dF| "
-        f"= {cpu_jf:.3e}; on the card, batched vs in turn: {loop_err:.3e}, "
-        f"{loop_jf:.3e} (tol 1e-3); J per object on the card "
-        f"{res['cuda']['J_per_object']}")
+    batch = backbone_norm == "batch"
+    cpu_flips = decided_flips("cpu", "cuda", cpu_err)
+    loop_flips = decided_flips("loop", "cuda", loop_err)
+    log(f"small fp32 eval_sequence ({backbone_norm} backbone, 2 objects, "
+        f"host window loop), objects batched, card vs CPU: max |dprob| = "
+        f"{cpu_err:.3e}, max |dJ|, |dF| = {cpu_jf:.3e}; on the card, "
+        f"batched vs in turn: {loop_err:.3e}, {loop_jf:.3e} (tol 1e-3); "
+        f"merged pixels that differ, all / decided by more than rounding: "
+        f"card vs CPU {cpu_flips}, batched vs in turn {loop_flips}; J per "
+        f"object on the card {res['cuda']['J_per_object']}")
     if res["cuda"]["probs"].shape != (2, 7, 32, 48):
         raise AssertionError(f"probs shape {res['cuda']['probs'].shape}")
-    if not max(cpu_err, cpu_jf, loop_err, loop_jf) <= 1e-3:
+    held = (max(cpu_err, loop_err) if batch
+            else max(cpu_err, cpu_jf, loop_err, loop_jf))
+    if not held <= 1e-3 or (batch and (cpu_flips[1] or loop_flips[1])):
         raise AssertionError(
-            f"eval_sequence disagrees: card vs CPU {cpu_err}, {cpu_jf}; "
-            f"batched vs in turn {loop_err}, {loop_jf}")
+            f"eval_sequence disagrees: card vs CPU {cpu_err}, {cpu_jf}, "
+            f"merged pixels {cpu_flips}; batched vs in turn {loop_err}, "
+            f"{loop_jf}, {loop_flips}")
+    if batch:
+        return
 
     ev = OneShotEvaluator(apply, meta_cfg, cfg, device="cuda", fused_ona=True)
     names = ["seq00", "seq01"]
@@ -1293,15 +1349,20 @@ def _meta_phase_seconds(marks):
     return steps
 
 
-def run_meta_mode(model, tag, step_cfg, n_gn, build=None):
-    """``MetaTrainer.run`` over one warm-up and META_TIMED timed meta steps
-    in one call (the pipelined loop): per step the device seconds from
-    after task sampling to the end of the outer update, split into
+def run_meta_mode(model, tag, step_cfg, n_gn, build=None,
+                  n_timed=META_TIMED, watch_buffers=False):
+    """``MetaTrainer.run`` over one warm-up and ``n_timed`` timed meta
+    steps in one call (the pipelined loop): per step the device seconds
+    from after task sampling to the end of the outer update, split into
     prepare (upload, draws, per-task augmentation), inner steps, query
     pass and outer update; host sampling seconds apart. The kernels'
     launch counts over the run must equal the formula, the meta-loss must
-    be finite, and the learned init, the frozen-BN buffers and the lrs
-    must all move (the buffers where the model has any). ``build`` makes
+    be finite, and the learned init, the buffers (frozen-BN constants or
+    ``batch`` norms' statistics) and the lrs must all move (the buffers
+    where the model has any). With ``watch_buffers`` the result names the
+    buffers that moved, those whose meta-gradient was non-zero in some
+    outer step (flags kept on the device, read after the run) and counts
+    those that stayed finite. ``build`` makes
     the trainer (``build_meta_trainer`` by default)."""
     from e_osvos_torch.ops import cuda_group_norm as K
     from e_osvos_torch.ops import cuda_nms
@@ -1327,19 +1388,35 @@ def run_meta_mode(model, tag, step_cfg, n_gn, build=None):
 
     trainer.taskset.sample_batch = sample_then_mark
     trainer.step.on_phase = mark
+    lrs = set(trainer.meta_params.log_init_lr)
+    buffers = {k: v for k, v in trainer.meta_params.model_init.items()
+               if k not in lrs}
+    grad_flags = torch.zeros(len(buffers), dtype=torch.bool, device="cuda")
+    if watch_buffers:
+        outer_step = trainer.opt_state.step
+
+        def step_and_watch(*args, **kwargs):
+            grad_flags.logical_or_(torch.stack([
+                torch.zeros((), dtype=torch.bool, device="cuda")
+                if v.grad is None else v.grad.ne(0).any()
+                for v in buffers.values()]))
+            return outer_step(*args, **kwargs)
+
+        trainer.opt_state.step = step_and_watch
     K.reset_launch_counts()
     cuda_nms.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    out = trainer.run(1 + META_TIMED)
+    out = trainer.run(1 + n_timed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
     nms_calls = cuda_nms.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = _meta_phase_seconds(marks)
-    if len(steps) != 1 + META_TIMED:
+    if len(steps) != 1 + n_timed:
         raise AssertionError(f"{len(steps)} timed meta steps in {tag}")
     timed = steps[1:]
     med = {k: float(np.median([s[k] for s in timed])) for k in timed[0]}
@@ -1349,10 +1426,10 @@ def run_meta_mode(model, tag, step_cfg, n_gn, build=None):
         f"steps {[round(s['step_s'], 4) for s in timed]}; warm-up "
         f"{steps[0]['step_s']:.4f} s; host sampling "
         f"{[round(s, 4) for s in sample_s]} s; wall {wall:.3f} s for "
-        f"{1 + META_TIMED} steps; peak memory {peak / 2**30:.2f} GiB")
+        f"{1 + n_timed} steps; peak memory {peak / 2**30:.2f} GiB")
     log(f"meta-training {tag} phases (median seconds a meta step) "
         + json.dumps({k: round(v, 4) for k, v in med.items()}))
-    want = {k: v * (1 + META_TIMED) for k, v in expected_meta_launches(
+    want = {k: v * (1 + n_timed) for k, v in expected_meta_launches(
         step_cfg, META_TASKS, n_gn, K.LAUNCHES_PER_CALL).items()}
     log(f"meta-training {tag} launch counts " + json.dumps(counts)
         + " expected " + json.dumps(want))
@@ -1364,9 +1441,8 @@ def run_meta_mode(model, tag, step_cfg, n_gn, build=None):
         f"{[round(x, 6) for x in out['per_task_loss']]}")
     if not np.isfinite([out["meta_loss"], *out["per_task_loss"]]).all():
         raise AssertionError(f"non-finite meta-loss in {tag}")
-    lrs = set(trainer.meta_params.log_init_lr)
     groups = {"model_init params": (0, lambda k: k in lrs),
-              "frozen-BN buffers": (0, lambda k: k not in lrs),
+              "buffers": (0, lambda k: k not in lrs),
               "lrs": (1, lambda k: True)}
     moved = {}
     for name, (i, pick) in groups.items():
@@ -1379,7 +1455,17 @@ def run_meta_mode(model, tag, step_cfg, n_gn, build=None):
     if (any(a == 0 for a, b in moved.values() if b)
             or not moved["model_init params"][1] or not moved["lrs"][1]):
         raise AssertionError(f"meta-parameters did not move: {moved}")
-    return counts, {"median_step_s": med, "peak_bytes": peak}
+    result = {"median_step_s": med, "peak_bytes": peak, "base_bytes": base}
+    if watch_buffers:
+        result.update(
+            buffers=set(buffers),
+            buffers_moved={k for k, v in buffers.items()
+                           if not torch.equal(before[0][k], v)},
+            buffers_reached={k for k, flag in zip(
+                buffers, grad_flags.tolist()) if flag},
+            buffers_finite=sum(bool(torch.isfinite(v).all())
+                               for v in buffers.values()))
+    return counts, result
 
 
 def meta_peak_memory(model, num_epochs: int) -> int:
@@ -1437,12 +1523,13 @@ def run_meta_training(shared):
 
 
 def small_meta_step(device, head_norm="group16", second_order=False,
-                    draws_from=None):
+                    draws_from=None, backbone_norm="frozen_bn"):
     """One meta step of 2 tasks on a small fp32 model (resnet10 os16
-    frozen-BN DeepLabV3+, 32x32, 2 inner steps truncated after each, the
-    per-step mode with degenerate augmentation): returns (step, the first
-    task's (loss, grads), the meta-parameters before the step (copies),
-    the step's output)."""
+    DeepLabV3+, frozen-BN backbone unless ``backbone_norm`` says otherwise,
+    32x32, 2 inner steps truncated after each, the per-step mode with
+    degenerate augmentation): returns (step, the first task's (loss,
+    grads), the meta-parameters before the step (copies), the step's
+    output)."""
     from e_osvos_torch.data.synthetic import SyntheticVOSIndex
     from e_osvos_torch.data.transforms import AugmentConfig
     from e_osvos_torch.meta_optim import (
@@ -1453,9 +1540,9 @@ def small_meta_step(device, head_norm="group16", second_order=False,
         MetaStepConfig, OuterOptimConfig, make_meta_step,
     )
 
-    model = DeepLabV3Plus(num_classes=1, arch="resnet10",
-                          backbone_norm="frozen_bn", head_norm=head_norm,
-                          output_stride=16, seed=5, device=device)
+    model = draw_batch_statistics(DeepLabV3Plus(
+        num_classes=1, arch="resnet10", backbone_norm=backbone_norm,
+        head_norm=head_norm, output_stride=16, seed=5, device=device), 5)
     meta_cfg = MetaOptimConfig(init_lr=1e-2, use_log_init_lr=False,
                                second_order_gradients=second_order)
     aug = AugmentConfig(scale_min=1.0, scale_max=1.0, rot_deg=0.0,
@@ -1517,7 +1604,7 @@ def step_change_excess(got_start, got_new, want_start, want_new,
     return worst, over, total
 
 
-def check_meta_reference():
+def check_meta_reference(backbone_norm="frozen_bn"):
     """One meta step of a small fp32 model on the card (the kernels) and on
     the CPU (their twins) from identical draws: the first task's meta-loss
     (rtol 1e-4), its meta-gradients within 1e-3 of each tensor's largest
@@ -1525,12 +1612,15 @@ def check_meta_reference():
     ``step_change_excess`` (1e-3 of the tensor's largest change plus two
     ulps). The same limit must reject the card's step with its change
     taken as zero (a missing outer update). Then the same with
-    second-order meta-gradients through the plain (_xla) norms; second
-    order through the kernel norms must raise."""
+    second-order meta-gradients through the plain (_xla) norms; with the
+    frozen-BN backbone, second order through the kernel norms must
+    raise."""
     tol_loss, tol = 1e-4, 1e-3
     for label, kw in (("first order", {}),
                       ("second order, _xla norms",
                        dict(head_norm="group16_xla", second_order=True))):
+        label = f"{backbone_norm} backbone, {label}"
+        kw["backbone_norm"] = backbone_norm
         cpu_step, (c_loss, c_grads), c_start, c_out = small_meta_step(
             "cpu", **kw)
         _, (g_loss, g_grads), g_start, g_out = small_meta_step(
@@ -1559,6 +1649,8 @@ def check_meta_reference():
         if noop_over == 0:
             raise AssertionError(f"the step-change limit ({label}) does not "
                                  "reject a missing outer update")
+    if backbone_norm != "frozen_bn":
+        return
     try:
         small_meta_step("cuda", second_order=True)
     except RuntimeError as e:
@@ -2268,6 +2360,8 @@ DET_MULTI_OBJECTS = 2
 # frames of phase 9b's timed sequences: 67 until the whole run passed 900 s
 # with phase 19 (964.24 s on a slow host); the fine-tunes and widths stay
 DET_MULTI_T = 27
+# fine-tune steps of phase 9b's warm-ups (the timed runs take the cell's 50)
+DET_MULTI_WARM_EPOCHS = 5
 
 
 def run_detection_multi_object(shared):
@@ -2276,17 +2370,22 @@ def run_detection_multi_object(shared):
     ``eval_sequence``, the
     objects batched (the default: one object-stacked Mask R-CNN) and in
     turn, one timed run each after a 7-frame warm-up of each (the stacked
-    model has its own cuDNN plans): fps, the fine-tune / propagation split
-    on the device timeline, peak memory, launch counts against
-    ``expected_detection_launches`` for 2 objects."""
+    model has its own cuDNN plans; the warm-ups' fine-tunes take
+    DET_MULTI_WARM_EPOCHS steps, the same shapes as the timed runs' 50):
+    fps, the fine-tune / propagation split on the device timeline, peak
+    memory, launch counts against ``expected_detection_launches`` for 2
+    objects."""
     from e_osvos_torch.data.synthetic import SyntheticVOSIndex
     from e_osvos_torch.engine import DetectionOneShotEvaluator
     from e_osvos_torch.ops import cuda_group_norm as K
 
     model, meta_params, single_ev, n_gn = shared["detection"]
-    evs = {batched: DetectionOneShotEvaluator(
-        model, single_ev.meta_cfg, single_ev.cfg, device="cuda",
-        fused_ona=True, batch_objects=batched) for batched in (True, False)}
+    warm_cfg = dataclasses.replace(single_ev.cfg,
+                                   num_epochs=DET_MULTI_WARM_EPOCHS)
+    evs = {(batched, cfg.num_epochs): DetectionOneShotEvaluator(
+        model, single_ev.meta_cfg, cfg, device="cuda", fused_ona=True,
+        batch_objects=batched)
+        for batched in (True, False) for cfg in (single_ev.cfg, warm_cfg)}
     if not DetectionOneShotEvaluator(model, single_ev.meta_cfg, single_ev.cfg,
                                      device="cuda").batch_objects:
         raise AssertionError("the detection evaluator does not batch objects "
@@ -2298,20 +2397,21 @@ def run_detection_multi_object(shared):
     if len(index.sequences["seq00"].object_groups) != DET_MULTI_OBJECTS:
         raise AssertionError("expected 2 object groups")
 
-    def run(batched, index, T):
+    def run(batched, index, T, cfg=single_ev.cfg):
         want = expected_detection_launches(
-            single_ev.cfg, T, n_gn, K.LAUNCHES_PER_CALL,
+            cfg, T, n_gn, K.LAUNCHES_PER_CALL,
             objects=DET_MULTI_OBJECTS, batched=batched)
-        return multi_object_run(evs[batched], meta_params, index, want,
-                                DET_MULTI_OBJECTS, T, batched)
+        return multi_object_run(evs[batched, cfg.num_epochs], meta_params,
+                                index, want, DET_MULTI_OBJECTS, T, batched)
 
     total, runs = {}, {}
     for batched in (True, False):
         tag = "batched" if batched else "in turn"
         t0 = time.perf_counter()
-        run(batched, warm, DET_WARMUP_T)
+        run(batched, warm, DET_WARMUP_T, warm_cfg)
         log(f"detection multi-object warm-up ({tag}, {DET_WARMUP_T} "
-            f"frames): {time.perf_counter() - t0:.3f} s")
+            f"frames, {DET_MULTI_WARM_EPOCHS}-step fine-tune): "
+            f"{time.perf_counter() - t0:.3f} s")
     for batched in (True, False):
         tag = "batched" if batched else "in turn"
         res, dt, peak, counts, spans = run(batched, index, DET_MULTI_T)
@@ -2353,13 +2453,15 @@ DET_REF_SEED = 6
 def detection_reference_setup(device: str, perturb: float = 0.0,
                               fused_ona: bool = True,
                               only_box_head: bool = False,
-                              batch_objects: bool = False):
+                              batch_objects: bool = False,
+                              backbone_norm: str = "group4"):
     """The tiny fp32 Mask R-CNN of the detection reference on ``device``,
     its meta-parameters and its evaluator (the fused window loop unless
     ``fused_ona`` is False; ``only_box_head`` refits the heads alone; the
     object groups in turn unless ``batch_objects``). ``perturb`` > 0 scales
     every weight by ``1 ± perturb`` (seeded signs): rounding noise put in
-    on purpose."""
+    on purpose. A ``batch`` backbone's statistics are drawn
+    (``draw_batch_statistics``)."""
     from e_osvos_torch.data.transforms import AugmentConfig
     from e_osvos_torch.engine import (
         DetectionOneShotConfig, DetectionOneShotEvaluator,
@@ -2379,8 +2481,9 @@ def detection_reference_setup(device: str, perturb: float = 0.0,
     rpn = RPNConfig(anchor_sizes=(8, 16, 32, 64, 128), pre_nms_top_n=64,
                     post_nms_top_n=32, batch_size_per_image=32)
     roi = RoIConfig(batch_size_per_image=16, detections_per_img=1)
-    model = MaskRCNN(arch="resnet10", backbone_norm="group4", rpn=rpn,
-                     roi=roi, seed=5, device=device)
+    model = draw_batch_statistics(MaskRCNN(
+        arch="resnet10", backbone_norm=backbone_norm, rpn=rpn, roi=roi,
+        seed=5, device=device), 5)
     if perturb:
         gen = torch.Generator(device="cpu").manual_seed(1)
         with torch.no_grad():
@@ -2397,7 +2500,8 @@ def detection_reference_setup(device: str, perturb: float = 0.0,
 def detection_reference(device: str, index_seed: int = DET_REF_SEED,
                         perturb: float = 0.0, fused_ona: bool = True,
                         only_box_head: bool = False,
-                        batch_objects: bool = False):
+                        batch_objects: bool = False,
+                        backbone_norm: str = "group4"):
     """``DetectionOneShotEvaluator.eval_sequence`` of a 2-object 5-frame
     64x64 synthetic sequence (seed ``index_seed``) on the tiny fp32 Mask
     R-CNN of ``detection_reference_setup`` on ``device``, the random
@@ -2410,7 +2514,8 @@ def detection_reference(device: str, index_seed: int = DET_REF_SEED,
     index = SyntheticVOSIndex(num_sequences=1, num_frames=DET_REF_T,
                               size=(64, 64), num_objects=2, seed=index_seed)
     meta_params, ev = detection_reference_setup(device, perturb, fused_ona,
-                                                only_box_head, batch_objects)
+                                                only_box_head, batch_objects,
+                                                backbone_norm)
     batched_nms, picks = mask_rcnn.batched_nms, []
 
     def recording_nms(*args, **kwargs):
@@ -2609,10 +2714,14 @@ def run_cli(tag: str, argv, out: str, shared):
     K.reset_launch_counts()
     cuda_nms.reset_launch_counts()
     torch.cuda.synchronize()
+    shared.setdefault("cli base", {})[tag] = base = (
+        torch.cuda.memory_allocated() / 2**30)
     t0 = time.perf_counter()
     records = evaluate.main(argv)
     torch.cuda.synchronize()
-    log(f"{tag}: cli.evaluate.main {time.perf_counter() - t0:.3f} s")
+    log(f"{tag}: cli.evaluate.main {time.perf_counter() - t0:.3f} s; "
+        f"{base:.2f} GiB allocated before it (earlier phases' tensors, in "
+        f"each sequence's peak)")
     return cfg, n_gn, records, {**K.launch_counts(),
                                 **cuda_nms.launch_counts()}
 
@@ -2689,6 +2798,7 @@ def run_cli_deeplab(shared):
                for name in CLI_SEQS}
     check_cli_output("CLI evaluation, DeepLab", records, out, CLI_SEQS,
                      per_seq, counts)
+    shared["cli"] = {r["seq"]: r for r in records if r["event"] == "eval_seq"}
     return counts
 
 
@@ -2698,9 +2808,11 @@ REFERENCE_SEQ = "crossing"  # build_480p_tree's 2-object val sequence
 def write_reference_checkpoints(cfg, out: str, seed: int):
     """A full-width DeepLabV3+ parent ``.pth`` in the reference's key
     vocabulary, its frozen BNs as BatchNorms with running statistics drawn
-    from ``seed``, and a ``.model`` meta checkpoint with NEURON lrs drawn
-    from ``seed``, both from the port's seeded model on the CPU
-    (``models/torch_import.py``'s writers). Returns their paths."""
+    from ``seed`` (a ``batch`` model's own statistics and affine, drawn
+    from ``seed`` by ``draw_batch_statistics``), and a ``.model`` meta
+    checkpoint with NEURON lrs drawn from ``seed``, both from the port's
+    seeded model on the CPU (``models/torch_import.py``'s writers).
+    Returns their paths and the written model's ``state_dict``."""
     from e_osvos_torch import config
     from e_osvos_torch.cli.common import build_parent_model
     from e_osvos_torch.meta_optim import init_meta_params
@@ -2709,7 +2821,8 @@ def write_reference_checkpoints(cfg, out: str, seed: int):
         reference_state_dict,
     )
 
-    model = build_parent_model(dict(cfg, device="cpu"))
+    model = draw_batch_statistics(build_parent_model(dict(cfg, device="cpu")),
+                                  seed)
     buffers = [n for n, _ in model.named_buffers()]
     pth, meta_file = (os.path.join(out, "parent.pth"),
                       os.path.join(out, "meta.model"))
@@ -2721,7 +2834,7 @@ def write_reference_checkpoints(cfg, out: str, seed: int):
            for k, v in mp.log_init_lr.items()}
     torch.save(reference_meta_checkpoint(mp._replace(log_init_lr=lrs),
                                          "deeplab_v3plus"), meta_file)
-    return pth, meta_file
+    return pth, meta_file, model.state_dict()
 
 
 def run_cli_reference(shared):
@@ -2733,6 +2846,22 @@ def run_cli_reference(shared):
     split file), its objects batched. The parent and meta-parameters the
     command line loads on the card must equal its CPU import bit for bit;
     records, PNGs and launch counts as phase 11's (one sequence)."""
+    return cli_from_reference_files(
+        shared, "CLI evaluation, reference checkpoints", REFERENCE_SEQ, 2,
+        [], "reference")[0]
+
+
+def cli_from_reference_files(shared, tag: str, seq: str, objects: int,
+                             extra, subdir: str, unfolded: bool = False):
+    """Reference-format parent and meta files of the configuration
+    (phase 11's settings plus ``extra`` keys) written from seeded weights,
+    loaded by the command line on the card and on the CPU (bit for bit the
+    same; with ``unfolded``, also bit for bit the written model's state:
+    ``batch`` norms take the file's statistics as they are), then
+    ``cli.evaluate.main`` from them on the disk tree's sequence ``seq``
+    alone (a split file), checked as phase 11. Returns (launch counts, the
+    sequence's eval_seq record with ``base_gib``, the GiB allocated before
+    the command line ran)."""
     from e_osvos_torch import config
     from e_osvos_torch.cli import evaluate
     from e_osvos_torch.cli.common import (
@@ -2743,21 +2872,20 @@ def run_cli_reference(shared):
     from e_osvos_torch.ops import cuda_group_norm as K
     from e_osvos_torch.ops import cuda_nms
 
-    tag = "CLI evaluation, reference checkpoints"
     tree = disk_tree(shared)
     root = os.path.join(tree, "DAVIS")
-    with open(os.path.join(root, "ImageSets", "2017",
-                           f"{REFERENCE_SEQ}.txt"), "w") as f:
-        f.write(REFERENCE_SEQ + "\n")
-    out = os.path.join(tree, "reference")
+    with open(os.path.join(root, "ImageSets", "2017", f"{seq}.txt"),
+              "w") as f:
+        f.write(seq + "\n")
+    out = os.path.join(tree, subdir)
     os.makedirs(out, exist_ok=True)
     argv = ["with", "DAVIS-2017", "e-OSVOS-OnA", f"datasets.val.root={root}",
-            f"datasets.val.split={REFERENCE_SEQ}", "num_epochs.eval=50",
+            f"datasets.val.split={seq}", "num_epochs.eval=50",
             "eval_online_adapt.min_prop=0.75", "eval_ona_window_bucket=0",
-            "eval_fused_ona=True"]
+            "eval_fused_ona=True"] + list(extra)
     t0 = time.perf_counter()
-    pth, meta_file = write_reference_checkpoints(config.parse_cli(argv), out,
-                                                 seed=7)
+    pth, meta_file, written = write_reference_checkpoints(
+        config.parse_cli(argv), out, seed=7)
     log(f"{tag}: wrote {os.path.basename(pth)} "
         f"({os.path.getsize(pth) / 2**20:.1f} MiB) and "
         f"{os.path.basename(meta_file)} "
@@ -2788,24 +2916,37 @@ def run_cli_reference(shared):
     if differ or loaded["cuda"][0].keys() != loaded["cpu"][0].keys():
         raise AssertionError(f"{tag}: card and CPU imports differ: "
                              f"{differ[:8]}")
+    if unfolded:
+        stats = [k for k in written if k.endswith((".mean", ".var"))]
+        changed = [k for k, v in written.items()
+                   if not torch.equal(loaded["cuda"][0][k], v)]
+        log(f"{tag}: {len(stats)} running statistics in the parent; "
+            f"{len(changed)} of {len(written)} loaded tensors differ from "
+            f"the written model's bit for bit (statistics unfolded)")
+        if changed or not stats:
+            raise AssertionError(f"{tag}: the parent loaded folded or "
+                                 f"changed: {changed[:8]}")
     del loaded
 
     K.reset_launch_counts()
     cuda_nms.reset_launch_counts()
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
     records = evaluate.main(argv)
     torch.cuda.synchronize()
-    log(f"{tag}: cli.evaluate.main {time.perf_counter() - t0:.3f} s")
+    log(f"{tag}: cli.evaluate.main {time.perf_counter() - t0:.3f} s; "
+        f"{base:.2f} GiB allocated before it (earlier phases' tensors, in "
+        f"each sequence's peak)")
     counts = {**K.launch_counts(), **cuda_nms.launch_counts()}
     cfg = config.parse_cli(argv)
     one = expected_launches(config.to_one_shot_config(cfg), MAIN_T, n_gn,
                             K.LAUNCHES_PER_CALL)
     for k in ("group_stats", "affine_apply"):  # init_J's forward
         one[k] += n_gn * K.LAUNCHES_PER_CALL[k]
-    check_cli_output(tag, records, out, {REFERENCE_SEQ: 2},
-                     {REFERENCE_SEQ: one}, counts)
-    return counts
+    check_cli_output(tag, records, out, {seq: objects}, {seq: one}, counts)
+    rec = [r for r in records if r["event"] == "eval_seq"][0]
+    return counts, dict(rec, base_gib=base)
 
 
 def run_cli_detection(shared):
@@ -3830,6 +3971,226 @@ def run_distributed_evaluation(shared):
     return counts
 
 
+# ------------------------------------------------------- the ``batch`` norm
+
+BATCH_SEQ = "drift"  # build_480p_tree's 1-object val sequence
+BATCH_META_TIMED = 2  # timed meta steps a mode in phase 20, after a warm-up
+
+
+def draw_batch_statistics(model, seed: int):
+    """Every ``batch`` norm of ``model`` given running statistics drawn
+    from ``seed`` around its input's own, as a trained parent's norms would
+    hold them, and a drawn affine, in place. A CPU copy of the model runs
+    the first 2 frames of a synthetic 64x64 sequence of seed ``seed``,
+    normalized as the evaluators and meta steps normalize them (``davis``):
+    the DeepLab family whole, Mask R-CNN its trunk. Each norm, as its
+    input arrives, takes per channel mean = μ + 0.1·σ·N(0, 1) and var =
+    σ²·U(0.5, 2) of that input's μ and σ² (σ² floored at 1e-3 of its mean
+    over the channels), scale ~ 1 + 0.2·N(0, 1) and bias ~ 0.1·N(0, 1).
+    Computed on the CPU, so a card model and a CPU model get the same
+    values. The defaults (mean 0, var 1) leave the norm an identity that
+    does not normalize: a random-weight trunk's activations then grow
+    layer by layer, the outputs saturate and the tiny detector's fine-tune
+    diverges. A model without such norms is left as it is. Returns
+    ``model``."""
+    from e_osvos_torch.data import transforms
+    from e_osvos_torch.data.synthetic import SyntheticVOSIndex
+    from e_osvos_torch.models import BatchNorm
+
+    norms = [n for n, m in model.named_modules() if isinstance(m, BatchNorm)]
+    if not norms:
+        return model
+    index = SyntheticVOSIndex(num_sequences=1, num_frames=2, size=(64, 64),
+                              seed=seed)
+    x = transforms.normalize(torch.from_numpy(np.stack(
+        [index.get_image("seq00", t) for t in range(2)])).float(), "davis")
+    gen = torch.Generator().manual_seed(seed)
+    ref = copy.deepcopy(model).to("cpu")
+    mods = dict(ref.named_modules())
+
+    def calibrate(mod, args):
+        x = args[0].detach().float()
+        mu, var = x.mean((0, 2, 3)), x.var((0, 2, 3), unbiased=False)
+        var = torch.maximum(var, 1e-3 * var.mean())
+        c = mu.numel()
+        mod.mean.copy_(mu + 0.1 * var.sqrt() * torch.randn(c, generator=gen))
+        mod.var.copy_(var * torch.empty(c).uniform_(0.5, 2.0, generator=gen))
+        mod.scale.copy_(1.0 + 0.2 * torch.randn(c, generator=gen))
+        mod.bias.copy_(0.1 * torch.randn(c, generator=gen))
+
+    hooks = [mods[n].register_forward_pre_hook(calibrate) for n in norms]
+    with torch.no_grad():
+        if hasattr(ref, "logits_nchw"):
+            ref(x)
+        else:
+            ref.backbone(x.permute(0, 3, 1, 2))
+        for h in hooks:
+            h.remove()
+        own = dict(model.named_modules())
+        for n in norms:
+            for leaf in ("scale", "bias", "mean", "var"):
+                getattr(own[n], leaf).copy_(getattr(mods[n], leaf))
+    return model
+
+
+def check_batch_detection_reference():
+    """The tiny fp32 detection reference (phase 10's, the fused loop) with
+    a ``batch`` backbone on the card: every detection-head K3 call of the
+    sequence picks on the card exactly what the plain twin picks on the
+    CPU from the same inputs, and the probabilities are finite. The gap to
+    the CPU run is printed beside the CPU's own spread under weights x (1
+    ± 2^-20), not held: with this backbone the tiny detector's RPN top-k
+    turns on near-ties from its first training forward, and rounding alone
+    moves the CPU run by about half a unit of probability (the spread
+    printed here; PERF.md), so a 1e-3 bound on the sequence would measure
+    the model's conditioning, not the port."""
+    from e_osvos_torch.models import mask_rcnn
+    from e_osvos_torch.ops import cuda_nms
+
+    batched_nms, calls = mask_rcnn.batched_nms, []
+
+    def recording(boxes, *args, **kwargs):
+        if boxes.is_cuda:
+            calls.append((boxes.clone(), [a.clone() if torch.is_tensor(a)
+                                          else a for a in args],
+                          {k: v.clone() if torch.is_tensor(v) else v
+                           for k, v in kwargs.items()}))
+        return batched_nms(boxes, *args, **kwargs)
+
+    mask_rcnn.batched_nms = recording
+    cuda_nms.reset_launch_counts()
+    try:
+        card, _ = detection_reference("cuda", backbone_norm="batch")
+    finally:
+        mask_rcnn.batched_nms = batched_nms
+    k3 = cuda_nms.launch_counts()["greedy_nms"]
+    cpu, _ = detection_reference("cpu", backbone_norm="batch")
+    moved, _ = detection_reference("cpu", perturb=2.0 ** -20,
+                                   backbone_norm="batch")
+    same = []
+    for boxes, args, kwargs in calls:
+        got = [t.cpu() for t in batched_nms(boxes, *args, **kwargs)]
+        want = batched_nms(boxes.cpu(), *[a.cpu() if torch.is_tensor(a)
+                                          else a for a in args],
+                           **{k: v.cpu() if torch.is_tensor(v) else v
+                              for k, v in kwargs.items()})
+        same.append(all(torch.equal(g, w) for g, w in zip(got, want)))
+    gap = (card["probs"] - cpu["probs"]).abs().max().item()
+    spread = (moved["probs"] - cpu["probs"]).abs().max().item()
+    log(f"tiny fp32 detection eval_sequence (batch backbone, fused loop; 2 "
+        f"objects, sequence seed {DET_REF_SEED}): {len(same)} detection-head "
+        f"K3 calls on the card ({k3} K3 launches), picks identical to the "
+        f"twin's on the same inputs: {sum(same)}/{len(same)}; card vs CPU "
+        f"max |dprob| {gap:.3e} beside the CPU's own spread under weights x "
+        f"(1 ± 2^-20) {spread:.3e} (printed, not held)")
+    if not calls or not all(same) or k3 == 0:
+        raise AssertionError(f"K3 on the batch-backbone detection sequence: "
+                             f"{sum(same)}/{len(same)} calls identical to "
+                             f"the twin, {k3} launches")
+    if tuple(card["probs"].shape) != (2, DET_REF_T, 64, 64) or not bool(
+            torch.isfinite(card["probs"]).all()):
+        raise AssertionError("the batch-backbone detection sequence's "
+                             "probabilities are not finite or of the "
+                             "expected shape")
+
+
+def run_batch_norm(shared):
+    """Phase 20, the ``batch`` norm (running statistics, learned affine):
+    (a) ``cli.evaluate`` with ``parent_model.backbone_norm=batch`` and the
+    GroupNorm-16 head from a reference ``.pth`` whose statistics are drawn
+    from a seed and a NEURON-lr ``.model`` (``cli_from_reference_files``,
+    statistics unfolded), phase 11's settings on the 1-object sequence:
+    fps and peak memory beside phase 11's frozen-BN run of the same
+    sequence, K1/K2 launches of the head's norms as phase 4's formula
+    gives them; (b) ``MetaTrainer.run`` of the full-width ``batch``
+    DeepLabV3+ in both modes of phase 6 (one warm-up, BATCH_META_TIMED
+    timed steps): seconds and peak memory beside phase 6's, launch counts,
+    every running ``mean``/``var`` moved and finite; (c) the small fp32
+    references with a ``batch`` backbone on the card against the CPU:
+    the single-group evaluation, the meta step (first and second order),
+    the detection sequence (K3 picks identical to the twin's) and the
+    2-object sequence batched against in turn. Returns the launch counts
+    of (a) and (b)."""
+    from e_osvos_torch.models import DeepLabV3Plus
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    tag = "batch norm, CLI evaluation"
+    counts, rec = cli_from_reference_files(
+        shared, tag, BATCH_SEQ, 1,
+        ["parent_model.backbone_norm=batch",
+         "parent_model.decoder_norm_layer=group16"], "batch_norm",
+        unfolded=True)
+    base = shared.get("cli", {}).get(BATCH_SEQ)
+    if base is not None:
+        grew = rec["peak_mem_gib"] - rec["base_gib"]
+        base_grew = base["peak_mem_gib"] - shared["cli base"][
+            "CLI evaluation, DeepLab"]
+        log(f"{tag}: {rec['fps']:.4f} fps, peak memory "
+            f"{rec['peak_mem_gib']:.2f} GiB ({grew:.2f} over what was "
+            f"allocated before); phase 11's frozen-BN run of {BATCH_SEQ}: "
+            f"{base['fps']:.4f} fps, {base['peak_mem_gib']:.2f} GiB "
+            f"({base_grew:.2f} over); ratio {rec['fps'] / base['fps']:.4f}, "
+            f"the sequence's own memory {grew - base_grew:+.2f} GiB; "
+            f"phase 4's timed sequence "
+            f"{shared.get('main fps', float('nan')):.4f} fps; on {smi}")
+
+    t0 = time.perf_counter()
+    model = draw_batch_statistics(DeepLabV3Plus(
+        num_classes=1, arch="resnet50", backbone_norm="batch",
+        output_stride=16, dtype=torch.bfloat16, seed=0, device="cuda"), 3)
+    n_gn = kernel_norms(model)
+    log(f"batch norm, meta-training set-up: {time.perf_counter() - t0:.3f} "
+        f"s; {n_gn} GroupNorm layers on the kernels")
+    for mode, step_cfg in meta_step_configs().items():
+        got, result = run_meta_mode(model, f"{mode}, batch backbone",
+                                    step_cfg, n_gn, n_timed=BATCH_META_TIMED,
+                                    watch_buffers=True)
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        frozen = shared.get(f"meta {mode}")
+        if frozen is not None:
+            grew, base_grew = (
+                (r["peak_bytes"] - r["base_bytes"]) / 2**30
+                for r in (result, frozen))
+            log(f"batch norm, meta-training {mode}: median "
+                f"{result['median_step_s']['step_s']:.4f} s a step, peak "
+                f"{result['peak_bytes'] / 2**30:.2f} GiB ({grew:.2f} over "
+                f"what was allocated before); phase 6's frozen-BN "
+                f"{frozen['median_step_s']['step_s']:.4f} s, "
+                f"{frozen['peak_bytes'] / 2**30:.2f} GiB ({base_grew:.2f} "
+                f"over); on {smi}")
+        stats, moved = result["buffers"], result["buffers_moved"]
+        reached = result["buffers_reached"]
+        by_leaf = {leaf: (sum(k.endswith(leaf) for k in moved),
+                          sum(k.endswith(leaf) for k in stats))
+                   for leaf in (".mean", ".var")}
+        log(f"batch norm, meta-training {mode}: of {len(stats)} running "
+            f"statistics, {len(reached)} had a non-zero meta-gradient in an "
+            f"outer step, {result['buffers_finite']} are finite; moved in "
+            f"value: means "
+            f"{by_leaf['.mean'][0]}/{by_leaf['.mean'][1]}, variances "
+            f"{by_leaf['.var'][0]}/{by_leaf['.var'][1]} (before RAdam's "
+            f"rectification at step 6 an update is the outer lr, 1e-5, "
+            f"times the first moment: a variance near 1 moves only where "
+            f"that exceeds half an f32 ulp, 6e-8)")
+        if (not stats or reached != stats
+                or result["buffers_finite"] != len(stats)):
+            raise AssertionError(
+                f"running statistics after the outer steps: "
+                f"{sorted(stats - reached)[:8]} not reached, "
+                f"{len(stats) - result['buffers_finite']} not finite")
+    del model
+
+    check_reference(backbone_norm="batch")
+    check_meta_reference(backbone_norm="batch")
+    check_batch_detection_reference()
+    check_eval_reference(backbone_norm="batch")
+    return counts
+
+
 REPLACES = {
     "group_stats": "e_osvos_tpu/ops/pallas_group_norm.py:47",
     "group_grad_coeffs": "e_osvos_tpu/ops/pallas_group_norm.py:63",
@@ -3929,7 +4290,8 @@ def main() -> int:
               ("training over several GPUs",
                lambda: run_distributed_training(shared)),
               ("evaluation over several GPUs",
-               lambda: run_distributed_evaluation(shared)))
+               lambda: run_distributed_evaluation(shared)),
+              ("the batch norm", lambda: run_batch_norm(shared)))
     launches = dict.fromkeys(records, 0)
     for label, phase in phases:
         t0 = time.perf_counter()

@@ -8,15 +8,16 @@ Checkpoints: a parent is a flax msgpack file of the JAX package's
 "opt_state"}`` (msgpack) or from the port's own ``MetaTrainer.save``
 (``torch.save``). The reference's ``.pth``/``.pt`` parents and ``.model``
 meta checkpoints go through ``models/torch_import.py``: a name-mapped import
-(BatchNorm statistics folded) when the key vocabulary names a reference
-model family, the reference's shape-matched copy otherwise.
+when the key vocabulary names a reference model family (BatchNorm
+statistics folded into a ``frozen_bn`` norm, copied as they are into a
+``batch`` one), the reference's shape-matched copy otherwise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -32,7 +33,7 @@ from e_osvos_torch.data.voc import VOC2012Index
 from e_osvos_torch.meta_optim import MetaParams, init_meta_params
 from e_osvos_torch.models import MaskRCNN, RoIConfig, RPNConfig, build_model
 from e_osvos_torch.models.jax_weights import (
-    lr_tree_from_jax,
+    meta_params_from_flax,
     state_dict_from_jax,
 )
 from e_osvos_torch.models.torch_import import (
@@ -69,7 +70,9 @@ def distributed_mesh(cfg: Dict) -> Optional[Mesh]:
 
 def build_parent_model(cfg: Dict) -> nn.Module:
     """The model of the ``parent_model`` subtree, seeded with ``seed``, on
-    the config's device. Under second-order meta-gradients the DeepLab
+    the config's device. ``backbone_norm`` and ``decoder_norm_layer`` take
+    any norm of ``models.make_norm`` (``batch``: running statistics and a
+    learned affine). Under second-order meta-gradients the DeepLab
     family's GroupNorms take their plain (``_xla``) form: the kernels'
     backward supports one level of differentiation, and that family's
     second order differentiates through every norm. Mask R-CNN keeps the
@@ -83,10 +86,6 @@ def build_parent_model(cfg: Dict) -> nn.Module:
 
     def norm(key: str, default: str) -> str:
         name = str(pm.get(key, default))
-        if name == "batch":
-            raise NotImplementedError(
-                f"parent_model.{key}=batch: the port has no batch norm with "
-                "running statistics; use frozen_bn or a group norm")
         if second_order and name in ("group", "group16", "group4"):
             name += "_xla"
         return name
@@ -249,17 +248,6 @@ def build_parent_state_selector(cfg: Dict, role: str, model: nn.Module
     splits = [read_split_file(p) for p in pm.get("val_split_files") or []]
     splits += [[]] * (len(states) - len(splits))
     return ParentStateSelector(states, splits)
-
-
-def meta_params_from_flax(tree: Mapping) -> MetaParams:
-    """A JAX ``MetaParams`` read by ``load_flax_checkpoint`` (a dict of its
-    fields) in the port's layout: the learned init as a ``state_dict``
-    (frozen-BN constants as buffers), the lrs keyed like
-    ``named_parameters()``."""
-    init = tree.get("model_init")
-    return MetaParams(
-        model_init=None if init is None else state_dict_from_jax(init),
-        log_init_lr=lr_tree_from_jax(tree["log_init_lr"]))
 
 
 def _read_meta_params(path: str, template: MetaParams) -> MetaParams:

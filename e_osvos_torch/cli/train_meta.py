@@ -23,9 +23,10 @@ device, or under ``torchrun`` this rank's, rank 0 alone writing), logs to
 evaluation, every ``eval_interval`` iterations over the first
 ``datasets.val`` index). ``meta_optim_model_file`` starts from saved
 meta-parameters (the port's, the JAX package's or a reference ``.model``);
-``resume`` continues a run of the port, outer optimizer state included, or
-starts from a reference ``.model``'s meta-parameters with a fresh outer
-optimizer.
+``resume`` continues a run of the port or of the JAX package (its
+``last_meta_iter.ckpt``: meta-parameters, the outer RAdam's step counts and
+moments, ``meta_iter`` and ``best_eval``), or starts from a reference
+``.model``'s meta-parameters with a fresh outer optimizer.
 """
 
 from __future__ import annotations
@@ -52,7 +53,6 @@ from e_osvos_torch.meta_optim.tasksets import MetaTaskset
 from e_osvos_torch.models import functional_apply
 from e_osvos_torch.parallel import detection_task_fns
 from e_osvos_torch.utils import MetricsLogger
-from e_osvos_torch.utils.checkpoint import is_torch_checkpoint
 
 
 def make_eval_fn(cfg, model, index):
@@ -91,14 +91,8 @@ def main(argv=None) -> MetaTrainer:
     cfg["save_dir"] = save_dir
     resume = cfg.get("resume")
     # a reference ``.model`` carries meta-parameters and no outer optimizer
-    # state of the port: it seeds the meta-parameters, the optimizer starts
+    # state: it seeds the meta-parameters, the optimizer starts
     reference = bool(resume) and str(resume).endswith(TORCH_FILES)
-    if (resume and os.path.exists(resume) and not reference
-            and not is_torch_checkpoint(resume)):
-        raise NotImplementedError(
-            f"resume={resume!r} is not a checkpoint of the port: the JAX "
-            "package's outer optimizer state does not carry over; pass it as "
-            "meta_optim_model_file to start from its meta-parameters")
 
     mesh = distributed_mesh(cfg)
     model = init_model_params(cfg, build_parent_model(cfg))

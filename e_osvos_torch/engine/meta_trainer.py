@@ -40,6 +40,10 @@ from e_osvos_torch.meta_optim import (
     lr_stats,
 )
 from e_osvos_torch.meta_optim.tasksets import MetaTaskset
+from e_osvos_torch.models.jax_weights import (
+    meta_params_from_flax,
+    outer_state_from_jax,
+)
 from e_osvos_torch.parallel import (
     Mesh,
     MetaStepConfig,
@@ -56,6 +60,11 @@ from e_osvos_torch.utils import (
     load_checkpoint,
     resolve_device,
     save_checkpoint,
+)
+from e_osvos_torch.utils.checkpoint import (
+    is_torch_checkpoint,
+    load_flax_checkpoint,
+    load_metadata,
 )
 from e_osvos_torch.utils.device import to_host
 
@@ -147,9 +156,22 @@ class MetaTrainer:
     @torch.no_grad()
     def restore(self, path: str) -> None:
         """Load a checkpoint into the current meta-parameters (in place, so
-        the outer optimizer keeps them) and the optimizer's state."""
-        state, meta = load_checkpoint(path, map_location=self.device)
-        for field, saved in state["meta_params"].items():
+        the outer optimizer keeps them) and the optimizer's state: the
+        port's own (``save``) or the JAX package's meta-trainer's (flax
+        msgpack ``{"meta_params", "opt_state"}``), whose RAdam step counts
+        and moments carry over (``models.jax_weights``), so the run goes
+        on as the JAX run would. ``meta_iter`` and ``best_eval`` come from
+        the sidecar."""
+        ours = is_torch_checkpoint(path)
+        if ours:
+            state, meta = load_checkpoint(path, map_location=self.device)
+            params, opt_state = state["meta_params"], state["opt_state"]
+        else:
+            tree = load_flax_checkpoint(path)
+            params = meta_params_from_flax(tree["meta_params"])._asdict()
+            opt_state = outer_state_from_jax(tree["opt_state"])
+            meta = load_metadata(path)
+        for field, saved in params.items():
             current = getattr(self.meta_params, field)
             if (current is None) != (saved is None) or (
                     current is not None and set(current) != set(saved)):
@@ -157,7 +179,10 @@ class MetaTrainer:
                                  "this trainer's meta-parameters")
             for k, v in (current or {}).items():
                 v.copy_(saved[k])
-        self.opt_state.load_state_dict(state["opt_state"])
+        if ours:
+            self.opt_state.load_state_dict(opt_state)
+        else:
+            self.opt_state.load_moments(self.meta_params, opt_state)
         if meta:
             self.meta_iter = int(meta.get("meta_iter", 0))
             self.best_eval = float(meta.get("best_eval", -float("inf")))

@@ -13,9 +13,10 @@ coupled weight decay (``add_decayed_weights`` before the optimizer) when
 ``weight_decay`` is set.
 
 As in the JAX package, the optimizer updates every tensor of the model's
-variables, the frozen-BN buffers included: the JAX step differentiates its
-whole ``variables`` tree, ``constants`` collection and all, so Adam moves
-those constants by about ``lr`` a step however small their gradient.
+variables, the buffers included (frozen-BN constants, ``batch`` norms'
+running statistics): the JAX step differentiates its whole ``variables``
+tree, ``constants`` and ``batch_stats`` collections and all, so Adam moves
+those buffers by about ``lr`` a step however small their gradient.
 
 Over several GPUs (``mesh`` from ``parallel.make_mesh`` under a process
 group) every rank samples the whole batch from the same seeded sampler and

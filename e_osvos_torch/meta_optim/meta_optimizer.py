@@ -5,11 +5,13 @@ applied functionally (``torch.func.functional_call``). One inner step is
 ``p ← p − lr·∇loss``.
 
 The learned init (``MetaParams.model_init``) also carries the model's
-frozen-BN buffers under their buffer names, as the JAX package's carries the
-``constants`` collection. They have no learning rate: the inner steps pass
-them to the model unchanged (the JAX package moves them by its lr floor,
-e^-33 ≈ 5e-15, times their gradient), while the query loss's meta-gradient
-reaches them and the outer step updates them with the rest of the init.
+buffers under their buffer names (frozen-BN constants, ``batch`` norms'
+running ``mean``/``var``), as the JAX package's carries the ``constants``
+and ``batch_stats`` collections. They have no learning rate: the inner
+steps pass them to the model unchanged (the JAX package moves them by its
+lr floor, e^-33 ≈ 5e-15, times their gradient), while the query loss's
+meta-gradient reaches them and the outer step updates them (RAdam, weight
+decay) with the rest of the init.
 
 Two inner loops:
 

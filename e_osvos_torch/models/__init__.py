@@ -15,6 +15,7 @@ from e_osvos_torch.models.mask_rcnn import (
     TrainDraws,
 )
 from e_osvos_torch.models.resnet import (
+    BatchNorm,
     Bottleneck,
     FrozenScaleBias,
     ResNet,
@@ -23,7 +24,8 @@ from e_osvos_torch.models.resnet import (
 from e_osvos_torch.models.rpn import RPNConfig
 
 __all__ = [
-    "ARCHITECTURES", "ASPP", "Bottleneck", "DeepLabV3", "DeepLabV3Plus",
-    "Detections", "FrozenScaleBias", "MaskRCNN", "RPNConfig", "ResNet",
-    "RoIConfig", "TrainDraws", "build_model", "functional_apply", "make_norm",
+    "ARCHITECTURES", "ASPP", "BatchNorm", "Bottleneck", "DeepLabV3",
+    "DeepLabV3Plus", "Detections", "FrozenScaleBias", "MaskRCNN",
+    "RPNConfig", "ResNet", "RoIConfig", "TrainDraws", "build_model",
+    "functional_apply", "make_norm",
 ]

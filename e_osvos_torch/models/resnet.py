@@ -128,13 +128,45 @@ class FrozenScaleBias(nn.Module):
                 + self.bias.to(x.dtype).view(shape))
 
 
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm(use_running_average=True)``: running
+    statistics that are never recomputed and a learned affine.
+
+    ``scale``/``bias`` are parameters (flax's ``params``), ``mean``/``var``
+    buffers (its ``batch_stats`` collection), so the learned init carries
+    them without a learning rate, as it carries the frozen-BN constants.
+    The forward is flax's ``_normalize`` in float32 (a bf16 input promotes
+    against the f32 statistics), cast to the input's dtype at the end:
+    ``y = (x − mean)·(rsqrt(var + eps)·scale) + bias``. It is plain tensor
+    arithmetic, which autograd differentiates to any order and through the
+    statistics too: the JAX package differentiates ``batch_stats`` in its
+    parent step and its outer step. ``var + eps`` is not clamped; a ``var``
+    moved below ``-eps`` gives NaN, as in the JAX package."""
+
+    eps = 1e-5  # flax's default (the port's GroupNorm takes 1e-6)
+
+    def __init__(self, num_channels: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+        self.register_buffer("mean", torch.zeros(num_channels))
+        self.register_buffer("var", torch.ones(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(self.var.float() + self.eps) * self.scale.float()
+        y = (x.float() - self.mean.float().view(shape)) * mul.view(shape)
+        return (y + self.bias.float().view(shape)).to(x.dtype)
+
+
 _GROUPS = {"group": 32, "group16": 16, "group4": 4}
 
 
 def make_norm(norm: str) -> Norm:
     """Norm factory by name: ``group`` (32 groups), ``group16``, ``group4``,
     their ``_xla`` forms (plain formulation, no kernel: for
-    differentiation beyond one reverse-mode level), and ``frozen_bn``."""
+    differentiation beyond one reverse-mode level), ``frozen_bn`` and
+    ``batch`` (running statistics, learned affine)."""
     if norm in _GROUPS:
         return partial(FusedGroupNorm, num_groups=_GROUPS[norm])
     if norm.endswith("_xla") and norm[:-4] in _GROUPS:
@@ -142,6 +174,8 @@ def make_norm(norm: str) -> Norm:
                        use_kernel=False)
     if norm == "frozen_bn":
         return FrozenScaleBias
+    if norm == "batch":
+        return BatchNorm
     raise ValueError(f"unknown norm {norm!r}")
 
 

@@ -12,7 +12,10 @@ model:
     ``[O·64, 3, 7, 7]`` weight, or each object's own images
     (``[B, O·3, H, W]``) grouped;
   * every GroupNorm has O·G groups over O·C channels (the K1/K2 kernels
-    take any C), every frozen-BN affine its buffers repeated O times;
+    take any C), every frozen-BN affine its buffers repeated O times, every
+    ``batch`` norm its affine and running statistics repeated O times
+    (the stem's norm reads O·64 channels whether the stem convolution
+    read shared frames or each object's own images);
   * DeepLab: the two channel concatenations (ASPP's branches, the
     decoder's ASPP and low-level features) are ordered object by object
     (``deeplab.cat_channels``), so each group reads its own object's
@@ -51,7 +54,7 @@ from torch import nn
 from e_osvos_torch.models.deeplab import _SegmentationModel
 from e_osvos_torch.models.mask_rcnn import MaskRCNN
 from e_osvos_torch.models.resnet import (
-    Conv, ConvTranspose, Dense, FrozenScaleBias,
+    BatchNorm, Conv, ConvTranspose, Dense, FrozenScaleBias,
 )
 from e_osvos_torch.ops.group_norm import FusedGroupNorm
 
@@ -112,8 +115,8 @@ def stack_model(model: nn.Module, objects: int) -> nn.Module:
                 mod.groups = objects
             elif isinstance(mod, FusedGroupNorm):
                 mod.num_groups *= objects
-            elif not isinstance(mod, (FrozenScaleBias, Dense)) and any(
-                    True for _ in mod.parameters(recurse=False)):
+            elif not isinstance(mod, (FrozenScaleBias, BatchNorm, Dense)) \
+                    and any(True for _ in mod.parameters(recurse=False)):
                 raise TypeError(f"cannot stack a {type(mod).__name__}")
             if hasattr(mod, "objects"):
                 mod.objects = objects

@@ -22,7 +22,9 @@ weights), so most tensors copy as they are. Three do not:
 
 BatchNorm running statistics fold into the frozen-BN ``scale``/``bias``
 buffers: ``scale = w / sqrt(var + eps)``, ``bias = b − mean·scale``, in
-float32 numpy arithmetic, as the JAX importer computes them.
+float32 numpy arithmetic, as the JAX importer computes them. A ``batch``
+norm (``models.resnet.BatchNorm``) has ``mean``/``var`` buffers of its own:
+there the statistics and the affine copy as they are, unfolded.
 
 Inputs are flat dicts of tensors or arrays (a ``state_dict``); outputs are
 new flat dicts of float32 CPU tensors keyed like the template.
@@ -290,12 +292,22 @@ def load_resnet_from_torch(state: Mapping[str, torch.Tensor],
     return out, copied
 
 
+def _collection_rank(name: str, buffers: set) -> int:
+    """Where the flax collection of a port entry sorts: ``batch_stats``
+    (a ``batch`` norm's ``mean``/``var`` buffers) 0, ``constants`` (the
+    other buffers: frozen-BN ``scale``/``bias``) 1, ``params`` 2."""
+    if name not in buffers:
+        return 2
+    return 0 if name.rpartition(".")[2] in ("mean", "var") else 1
+
+
 def _jax_order(names: Iterable[str], buffers: Iterable[str]) -> list:
-    """The order the JAX package's variables flatten in: the ``constants``
-    collection (the port's buffers) before ``params``, each sorted by name
+    """The order the JAX package's variables flatten in: by collection
+    (``batch_stats``, ``constants``, ``params``), then sorted by name
     segment at every level."""
     buffers = set(buffers)
-    return sorted(names, key=lambda k: (k not in buffers, k.split(".")))
+    return sorted(names, key=lambda k: (_collection_rank(k, buffers),
+                                        k.split(".")))
 
 
 def shape_matched_load(state: Mapping[str, torch.Tensor],
@@ -305,8 +317,9 @@ def shape_matched_load(state: Mapping[str, torch.Tensor],
     """The reference's weight surgery generalized: each torch tensor, in its
     order, goes to the first unfilled entry of ``state`` with its shape.
     Entries are visited in the JAX package's order (``buffers`` names the
-    frozen constants, which it visits first), so both packages fill the
-    same names. Returns (new state, copied count)."""
+    model's buffers: ``batch`` norms' statistics and frozen constants,
+    which it visits first, in that order), so both packages fill the same
+    names. Returns (new state, copied count)."""
     out = _copy(state)
     order = _jax_order(out, buffers)
     used = set()
@@ -332,8 +345,10 @@ def load_mapped_from_torch(state: Mapping[str, torch.Tensor],
     A tensor is copied where its mapped name exists and its (port-layout)
     shape matches, so COCO's 91-class heads are skipped for a 2-class
     model, as the reference skips them. A norm's running statistics fold
-    into its ``scale``/``bias``. Returns (new state, torch tensors
-    consumed: one a weight, two a norm)."""
+    into its ``scale``/``bias``, unless ``state`` has the norm's own
+    ``mean``/``var`` (a ``batch`` norm): then all four copy as they are.
+    Returns (new state, torch tensors consumed: one a weight, two a
+    frozen norm, four a ``batch`` norm)."""
     if architecture is None:
         architecture = detect_torch_architecture(torch_state_dict)
     name_map = name_map_for(architecture)
@@ -365,12 +380,18 @@ def load_mapped_from_torch(state: Mapping[str, torch.Tensor],
         if tuple(out[sk].shape) != w.shape:
             continue
         mean, var = group.get("mean"), group.get("var")
-        if mean is not None and var is not None:
+        stats = mean is not None and var is not None
+        own_stats = f"{base}.mean" in out and f"{base}.var" in out
+        if stats and not own_stats:
             s = w / np.sqrt(var + bn_eps)
             w, b = s, b - mean * s
         out[sk] = _tensor_like(w, out[sk])
         out[bk] = _tensor_like(b, out[bk])
         copied += 2
+        if stats and own_stats:
+            out[f"{base}.mean"] = _tensor_like(mean, out[f"{base}.mean"])
+            out[f"{base}.var"] = _tensor_like(var, out[f"{base}.var"])
+            copied += 2
     return out, copied
 
 
@@ -510,10 +531,14 @@ _HEADS_TO_REFERENCE["deeplab_v3"] = _HEADS_TO_REFERENCE["deeplab_v3plus"][
            (r"classifier\.", r"classifier.4."))
 
 
+_LEAF_TO_REFERENCE = {"scale": "weight", "mean": "running_mean",
+                      "var": "running_var"}
+
+
 def reference_key(port_key: str, architecture: str) -> str:
     """The reference's key of a port name (the inverse of the family's name
-    map, norms named ``weight``/``bias``): what a reference-format file
-    written from the port's weights holds."""
+    map, norms named ``weight``/``bias``/``running_mean``/``running_var``):
+    what a reference-format file written from the port's weights holds."""
     def sub(rules, key):
         for pattern, repl in rules:
             new, n = re.subn("^" + pattern, repl, key, count=1)
@@ -522,8 +547,8 @@ def reference_key(port_key: str, architecture: str) -> str:
         raise KeyError(f"{port_key}: no reference name ({architecture})")
 
     leafless, _, leaf = port_key.rpartition(".")
-    if leaf == "scale":
-        port_key = f"{leafless}.weight"
+    if leaf in _LEAF_TO_REFERENCE:
+        port_key = f"{leafless}.{_LEAF_TO_REFERENCE[leaf]}"
     if architecture == "resnet":
         return sub(_TRUNK_TO_REFERENCE, port_key)
     if port_key.startswith("backbone."):
@@ -551,9 +576,11 @@ def reference_state_dict(state: Mapping[str, torch.Tensor],
     reference parent ``.pth`` holds it. Each frozen-BN norm (its
     ``scale``/``bias`` named in ``buffers``) becomes a BatchNorm with running
     statistics drawn from ``seed`` (mean ~ N(0, 0.1²), var ~ U(0.5, 2)) and
-    the affine that folds back to it, and a ``num_batches_tracked``;
-    ``load_mapped_from_torch`` of the result gives ``state`` back to
-    rounding."""
+    the affine that folds back to it; a ``batch`` norm (its ``mean``/``var``
+    in ``buffers``) is written with its own statistics and affine. Each
+    BatchNorm gets a ``num_batches_tracked``. ``load_mapped_from_torch`` of
+    the result gives ``state`` back, to rounding for the folded norms and
+    exactly for the ``batch`` ones."""
     buffers = set(buffers)
     rng = np.random.RandomState(seed)
     out: Dict[str, torch.Tensor] = {}
@@ -561,6 +588,12 @@ def reference_state_dict(state: Mapping[str, torch.Tensor],
         arr = _to_numpy(value).astype(np.float32)
         ref = reference_key(name, architecture)
         base, _, leaf = name.rpartition(".")
+        if name in buffers and leaf in ("mean", "var"):
+            out[ref] = arr  # a ``batch`` norm's running statistics
+            if leaf == "var":
+                out[f"{ref.rpartition('.')[0]}.num_batches_tracked"] = (
+                    np.array(0, np.int64))
+            continue
         if name in buffers and leaf == "bias":
             continue  # written with its scale below
         if name in buffers and leaf == "scale":

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -169,6 +169,31 @@ class OuterRAdam(torch.optim.Optimizer):
             torch._foreach_mul_(updates, -group["lr"])
             torch._foreach_add_(params, updates)
         return None
+
+    @torch.no_grad()
+    def load_moments(self, meta_params: MetaParams,
+                     state: Mapping[str, Mapping[str, Any]]) -> None:
+        """Each group's step count and its tensors' moments from ``state``
+        (``{group: {"count", "mu": {name: tensor}, "nu": {...}}}``, as
+        ``models.jax_weights.outer_state_from_jax`` gives a JAX run's),
+        the tensors found by name in ``meta_params``, the meta-parameters
+        this optimizer holds. Every group and tensor must be there."""
+        if {g["name"] for g in self.param_groups} != set(state):
+            raise ValueError(f"outer state groups {sorted(state)} do not "
+                             "match the optimizer's")
+        for group in self.param_groups:
+            saved, tensors = state[group["name"]], getattr(
+                meta_params, group["name"])
+            for field in ("mu", "nu"):
+                if set(saved[field]) != set(tensors):
+                    raise ValueError(
+                        f"{group['name']}.{field}: moments of "
+                        f"{sorted(set(saved[field]) ^ set(tensors))[:8]} "
+                        "do not match the meta-parameters")
+            group["count"] = int(saved["count"])
+            for k, p in tensors.items():
+                self.state[p] = {f: saved[f][k].to(p.device, p.dtype).clone()
+                                 for f in ("mu", "nu")}
 
 
 def make_outer_optimizer(cfg: OuterOptimConfig, meta_params: MetaParams

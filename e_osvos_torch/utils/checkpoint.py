@@ -54,11 +54,16 @@ def load_checkpoint(path: str,
     """The state saved by ``save_checkpoint`` (tensors on
     ``map_location``) and its metadata, None without a sidecar."""
     state = torch.load(path, map_location=map_location, weights_only=True)
-    meta = None
-    if os.path.exists(path + ".json"):
-        with open(path + ".json") as f:
-            meta = json.load(f)
-    return state, meta
+    return state, load_metadata(path)
+
+
+def load_metadata(path: str) -> Optional[Dict]:
+    """The JSON sidecar ``<path>.json`` of a checkpoint (the port's or the
+    JAX package's, which write the same sidecar), None without one."""
+    if not os.path.exists(path + ".json"):
+        return None
+    with open(path + ".json") as f:
+        return json.load(f)
 
 
 def is_torch_checkpoint(path: str) -> bool:

@@ -2,7 +2,8 @@
 the JAX package's on the repo's YAML files: for several command lines,
 every ``to_*`` view equals its JAX counterpart field by field, and the
 Mask R-CNN model the port builds has the JAX model's RPN and RoI
-configuration. Keys the port cannot honour raise."""
+configuration; the ``batch`` norm keys build the JAX model's variables.
+Keys the port cannot honour raise."""
 
 import dataclasses
 
@@ -137,11 +138,43 @@ def test_maskrcnn_second_order_keeps_the_kernel_norms():
         "roi_heads",)
 
 
+@pytest.mark.parametrize("arch", ["DeepLabV3Plus", "MaskRCNN"])
+def test_batch_norm_keys_build(arch):
+    """``parent_model.backbone_norm=batch`` and
+    ``decoder_norm_layer=batch`` build in both families, as in the JAX
+    package: the port's buffers are the JAX model's ``batch_stats`` leaves
+    (the backbone's alone for Mask R-CNN, which has no decoder norms) and
+    its parameters the JAX ``params``."""
+    import jax
+    import jax.numpy as jnp
+
+    from e_osvos_torch.models import BatchNorm
+    from e_osvos_torch.models.jax_weights import state_dict_from_jax
+
+    argv = ["with", "DAVIS-2017", f"parent_model.architecture={arch}",
+            "parent_model.backbone_norm=batch",
+            "parent_model.decoder_norm_layer=batch",
+            "parent_model.encoder=resnet10", "parent_model.dtype=float32",
+            "device=cpu"]
+    model = build_parent_model(config.parse_cli(argv))
+    j_model = j_build_parent_model(j_config.parse_cli(argv))
+    rngs = {"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)}
+    shapes = jax.eval_shape(j_model.init, rngs, jnp.zeros((1, 64, 64, 3)))
+    assert set(shapes) == {"params", "batch_stats"}
+    zeros = jax.tree_util.tree_map(lambda x: jnp.zeros(x.shape, x.dtype),
+                                   dict(shapes))
+    want = state_dict_from_jax(zeros)
+    assert set(model.state_dict()) == set(want)
+    assert {n for n, _ in model.named_buffers()} == set(
+        state_dict_from_jax({"batch_stats": zeros["batch_stats"]}))
+    norms = [n for n, m in model.named_modules() if isinstance(m, BatchNorm)]
+    assert len(norms) == (17 if arch == "MaskRCNN" else 17 + 9)
+
+
 @pytest.mark.parametrize("argv, error", [
     (["random_box_coord_perm=True"], ValueError),
-    (["parent_model.backbone_norm=batch"], NotImplementedError),
     (["parent_model.architecture=NoSuchNet"], ValueError),
-], ids=["box_coord_perm", "batch_norm", "architecture"])
+], ids=["box_coord_perm", "architecture"])
 def test_unhonoured_keys_raise(argv, error):
     """A key the port cannot honour raises when set away from its default;
     none is dropped."""

@@ -1,5 +1,6 @@
 """The GroupNorm kernels and the greedy NMS kernel (K3) on the card against
-their plain twins.
+their plain twins, and a model with ``batch`` norms on the card against
+the CPU.
 
 Marked ``cuda``: they skip without a CUDA device (the kernels have no CPU
 mode) and run on a GPU machine with
@@ -192,6 +193,84 @@ def test_wrappers_reject_bad_operands(cuda):
         kernels.group_grad_coeffs(x, x, s, mean[:, :2], mean, 4)
     with pytest.raises(ValueError):
         kernels.affine_apply(x, mean, mean)  # coefficients not [N, C]
+
+
+def _batch_norm_model(device, dtype):
+    """A resnet10 os16 DeepLabV3+ with ``batch`` norms in the backbone
+    (statistics and affine drawn from a seed, far from the identity) and the
+    GroupNorm-16 head, in ``dtype``, on ``device``."""
+    from e_osvos_torch.models import BatchNorm, DeepLabV3Plus
+
+    model = DeepLabV3Plus(num_classes=1, arch="resnet10",
+                          backbone_norm="batch", head_norm="group16",
+                          output_stride=16, dtype=dtype, seed=2,
+                          device=device)
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                c = m.mean.numel()
+                m.mean.copy_(0.1 * torch.randn(c, generator=gen))
+                m.var.copy_(torch.empty(c).uniform_(0.5, 2.0, generator=gen))
+                m.scale.copy_(1.0 + 0.2 * torch.randn(c, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(c, generator=gen))
+    return model
+
+
+def _logits_and_grads(device, dtype, x, w):
+    """The ``batch``-backbone model's logits and the gradients of their
+    weighted sum to every parameter and running statistic, on the host."""
+    from e_osvos_torch.models import functional_apply
+
+    model = _batch_norm_model(device, dtype)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in model.state_dict().items()}
+    y = functional_apply(model)(params, x.to(device))
+    grads = torch.autograd.grad((y * w.to(device)).sum(),
+                                list(params.values()))
+    return {"logits": y.detach().cpu(),
+            **{k: g.detach().cpu() for k, g in zip(params, grads)}}
+
+
+def _rel_errs(got, want):
+    """Each tensor's largest |got − want| over its largest |want|."""
+    return {k: float((got[k].double() - v.double()).abs().max())
+            / max(float(v.abs().max()), 1e-6) for k, v in want.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_norm_model_matches_cpu(cuda, dtype):
+    """The ``batch``-backbone model on the card (the head's GroupNorms on
+    the kernels) against the same model on the CPU (the twins), 2 images of
+    32x48 of unit scale, its logits and the gradients of their weighted sum
+    to every parameter and running statistic; each GroupNorm wrapper called
+    once a norm a pass. float32: within 1e-4 of each tensor's largest
+    magnitude. bfloat16, where the two devices' convolutions round
+    differently: each tensor's error against the CPU's float32 result at
+    most twice the CPU's own bfloat16 error plus 1e-3. (At 60 times that
+    input scale the gradients' sums cancel, and the card's default
+    nondeterministic backward reductions then land far from the CPU's
+    result where its deterministic algorithms do not.)"""
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 32, 48, 3, generator=gen)
+    w = torch.randn(2, 32, 48, 1, generator=gen)
+    kernels.reset_launch_counts()
+    got = _logits_and_grads(cuda, dtype, x, w)
+    n_gn = 9  # ASPP 6, low_norm, dec_norm1, dec_norm2
+    assert kernels.launch_counts() == {k: n_gn * v for k, v in
+                                       kernels.LAUNCHES_PER_CALL.items()}
+    assert all(bool(torch.isfinite(t).all()) for t in got.values())
+    f32 = _logits_and_grads("cpu", torch.float32, x, w)
+    if dtype == torch.float32:
+        errs = _rel_errs(got, f32)
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+        assert worst[0][1] <= 1e-4, worst
+    else:
+        cpu = _rel_errs(_logits_and_grads("cpu", dtype, x, w), f32)
+        card = _rel_errs(got, f32)
+        over = {k: (card[k], cpu[k]) for k in f32
+                if card[k] > 2 * cpu[k] + 1e-3}
+        assert not over, sorted(over.items())[:5]
 
 
 # (N, max_out, IoU threshold): the detection path's, a ragged N, several
