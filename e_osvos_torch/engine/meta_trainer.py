@@ -60,6 +60,7 @@ from e_osvos_torch.utils import (
     load_checkpoint,
     resolve_device,
     save_checkpoint,
+    tracing,
 )
 from e_osvos_torch.utils.checkpoint import (
     is_torch_checkpoint,
@@ -73,9 +74,10 @@ from e_osvos_torch.utils.device import to_host
 class MetaTrainConfig:
     """Top-level meta-training settings. ``profile_iters`` ``(start,
     stop)`` traces meta-iterations [start, stop) with ``torch.profiler``
-    into a Chrome trace under ``profile_dir``. ``increase_seed_per_meta_run``
-    reseeds the task sampler with ``seed + iteration`` before each
-    iteration."""
+    into a Chrome trace under ``profile_dir``, with the program's spans
+    (``utils.tracing``, on for the window) among its host ranges.
+    ``increase_seed_per_meta_run`` reseeds the task sampler with ``seed +
+    iteration`` before each iteration."""
 
     meta_batch_size: int = 4
     num_meta_iters: int = 1000
@@ -118,6 +120,7 @@ class MetaTrainer:
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else make_mesh()
         self.main = self.mesh.rank == 0
+        self._tracing_window = False  # the profile window turned tracing on
         self.taskset = taskset
         self.train_cfg = train_cfg
         self.logger = logger or MetricsLogger(
@@ -202,12 +205,18 @@ class MetaTrainer:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=acts)
             prof.start()
+            self._tracing_window = not tracing.enabled()
+            if self._tracing_window:
+                tracing.enable(self.device.type)
         elif prof is not None and self.meta_iter == stop:
             self._stop_profile(prof, start)
             prof = None
         return prof
 
     def _stop_profile(self, prof, start: int) -> None:
+        if self._tracing_window:  # the trace holds the spans
+            tracing.disable()
+            tracing.collect()
         prof.stop()
         os.makedirs(self.train_cfg.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
@@ -244,7 +253,8 @@ class MetaTrainer:
             t_sample = self.timer.stop("sample")
 
             t0 = time.perf_counter()
-            out = self.step(self.meta_params, self.opt_state, batch)
+            with tracing.span("meta_step"):
+                out = self.step(self.meta_params, self.opt_state, batch)
             self.meta_iter += 1
             fetch = (*_losses_to_host(out), t_sample, t0)
             if pending is not None:

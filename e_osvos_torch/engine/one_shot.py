@@ -70,6 +70,7 @@ from e_osvos_torch.ops import losses as loss_ops
 from e_osvos_torch.ops import metrics as metric_ops
 from e_osvos_torch.ops.bits import pack_mask_bits, unpack_mask_bits
 from e_osvos_torch.parallel.mesh import Mesh, broadcast_params, map_rows
+from e_osvos_torch.utils import tracing
 from e_osvos_torch.utils.device import resolve_device, upload
 from e_osvos_torch.utils.seeds import fold_in
 
@@ -175,20 +176,21 @@ def fine_tune_on_support(model_apply: Callable, meta_cfg: MetaOptimConfig,
     ``generator`` (stacked objects: a list, one an object) up front and
     cross to the device once."""
     shape = (cfg.num_epochs, cfg.batch_size)
-    if label.dim() == 2:
-        draws = transforms.sample_augment_draws(generator, cfg.augment,
-                                                shape).to(img.device)
-        batches = [(img, label, draws.select(i))
-                   for i in range(cfg.num_epochs)]
-    else:
-        draws = [transforms.sample_augment_draws(g, cfg.augment,
-                                                 shape).to(img.device)
-                 for g in generator]
-        batches = [(img, label, [d.select(i) for d in draws])
-                   for i in range(cfg.num_epochs)]
-    return fine_tune(meta_cfg, make_support_loss_fn(model_apply, cfg),
-                     meta_params, batches, init_params=init_params,
-                     early_stop_patience=cfg.early_stop_patience)
+    with tracing.span("fine_tune"):
+        if label.dim() == 2:
+            draws = transforms.sample_augment_draws(generator, cfg.augment,
+                                                    shape).to(img.device)
+            batches = [(img, label, draws.select(i))
+                       for i in range(cfg.num_epochs)]
+        else:
+            draws = [transforms.sample_augment_draws(g, cfg.augment,
+                                                     shape).to(img.device)
+                     for g in generator]
+            batches = [(img, label, [d.select(i) for d in draws])
+                       for i in range(cfg.num_epochs)]
+        return fine_tune(meta_cfg, make_support_loss_fn(model_apply, cfg),
+                         meta_params, batches, init_params=init_params,
+                         early_stop_patience=cfg.early_stop_patience)
 
 
 @torch.no_grad()
@@ -237,11 +239,12 @@ def make_ona_refit_fn(model_apply: Callable, meta_cfg: MetaOptimConfig,
 
     def refit(meta_params, img, label, prop_imgs, prop_labels, params):
         batch = (img, label, prop_imgs, prop_labels)
-        return fine_tune(meta_cfg, loss_fn, meta_params,
-                         [batch] * cfg.online_adapt_epochs,
-                         init_params=params,
-                         early_stop_patience=cfg.early_stop_patience,
-                         reset=False)[0]
+        with tracing.span("refit"):
+            return fine_tune(meta_cfg, loss_fn, meta_params,
+                             [batch] * cfg.online_adapt_epochs,
+                             init_params=params,
+                             early_stop_patience=cfg.early_stop_patience,
+                             reset=False)[0]
 
     return refit
 
@@ -278,11 +281,14 @@ def propagate_windows(model_apply: Callable, meta_cfg: MetaOptimConfig,
     probs = []
     for i in range(windows.shape[0]):
         window = windows[i]
-        w_probs = segment_frames(model_apply, cfg, params, window, stacked)
+        with tracing.span("segment"):
+            w_probs = segment_frames(model_apply, cfg, params, window,
+                                     stacked)
         probs.append(w_probs)
         if i < wn_real - 1:
-            pseudo = build_pseudo_gt(w_probs[..., -k:, :, :],
-                                     cfg.online_adapt_min_prop, orig_hw)
+            with tracing.span("pseudo_gt"):
+                pseudo = build_pseudo_gt(w_probs[..., -k:, :, :],
+                                         cfg.online_adapt_min_prop, orig_hw)
             params = refit(meta_params, support_img, support_label,
                            window[-k:], pseudo, params)
     return torch.cat(probs, -3), params
@@ -299,7 +305,8 @@ def one_shot_packed(model_apply: Callable, meta_cfg: MetaOptimConfig,
     params, _ = fine_tune_on_support(model_apply, meta_cfg, cfg, meta_params,
                                      generator, support_img, support_label,
                                      init_params)
-    probs = segment_frames(model_apply, cfg, params, frames)
+    with tracing.span("propagate"), tracing.span("segment"):
+        probs = segment_frames(model_apply, cfg, params, frames)
     return pack_mask_bits(probs >= cfg.threshold)
 
 
@@ -315,9 +322,10 @@ def one_shot_packed_ona(model_apply: Callable, meta_cfg: MetaOptimConfig,
     params, _ = fine_tune_on_support(model_apply, meta_cfg, cfg, meta_params,
                                      generator, support_img, support_label,
                                      init_params)
-    probs, _ = propagate_windows(model_apply, meta_cfg, cfg, orig_hw,
-                                 meta_params, support_img, support_label,
-                                 windows, params, wn_real)
+    with tracing.span("propagate"):
+        probs, _ = propagate_windows(model_apply, meta_cfg, cfg, orig_hw,
+                                     meta_params, support_img, support_label,
+                                     windows, params, wn_real)
     return pack_mask_bits(probs >= cfg.threshold)
 
 
@@ -413,7 +421,8 @@ def one_shot_packed_objects(model_apply: Callable, meta_cfg: MetaOptimConfig,
     apply, _, params = _fine_tune_objects(
         model_apply, meta_cfg, cfg, meta_params, seed, support_img, labels,
         init_params)
-    probs = segment_frames(apply, cfg, params, frames, stacked=True)
+    with tracing.span("propagate"), tracing.span("segment"):
+        probs = segment_frames(apply, cfg, params, frames, stacked=True)
     return _pack_merged_planes(merge_objects(probs, cfg.threshold),
                                labels.shape[0])
 
@@ -432,9 +441,10 @@ def one_shot_packed_objects_ona(model_apply: Callable,
     apply, meta, params = _fine_tune_objects(
         model_apply, meta_cfg, cfg, meta_params, seed, support_img, labels,
         init_params)
-    w_flat, _ = propagate_windows(apply, meta_cfg, cfg, orig_hw, meta,
-                                  support_img, labels, windows, params,
-                                  wn_real)
+    with tracing.span("propagate"):
+        w_flat, _ = propagate_windows(apply, meta_cfg, cfg, orig_hw, meta,
+                                      support_img, labels, windows, params,
+                                      wn_real)
     return _pack_merged_planes(merge_objects(w_flat, cfg.threshold),
                                labels.shape[0])
 
@@ -580,29 +590,36 @@ class OneShotEvaluator:
         over objects."""
         seq = index.sequences[seq_name]
         groups = seq.object_groups
-        frames, support, (T, h0, w0) = stage_sequence(
-            index, seq_name, self.device, self.cfg.pad_multiple)
-        if self._batched(groups):
-            probs = self._eval_objects_batched(
-                index, seq, frames, meta_params, seed, init_params,
-                orig_hw=(h0, w0),
-                support_img=support[groups[0].support_frame])
-        else:
-            # each group's params are dropped before the next group starts
-            probs = torch.stack([
-                self._eval_object_group(
-                    index, seq, frames, g, meta_params,
-                    _generator(fold_in(seed, gi)), init_params,
-                    orig_hw=(h0, w0), support_img=support[g.support_frame])
-                for gi, g in enumerate(groups)])
-        probs = probs[..., :h0, :w0]  # crop the bucket padding
-        merged = merge_objects(probs, self.cfg.threshold)
-        j_means, f_means, _ = score_merged_device(index, seq_name, seq, merged)
-        self._phase_done("score")
+        with tracing.span("sequence"):
+            with tracing.span("stage"):
+                frames, support, (T, h0, w0) = stage_sequence(
+                    index, seq_name, self.device, self.cfg.pad_multiple)
+            if self._batched(groups):
+                probs = self._eval_objects_batched(
+                    index, seq, frames, meta_params, seed, init_params,
+                    orig_hw=(h0, w0),
+                    support_img=support[groups[0].support_frame])
+            else:
+                # each group's params are dropped before the next starts
+                probs = torch.stack([
+                    self._eval_object_group(
+                        index, seq, frames, g, meta_params,
+                        _generator(fold_in(seed, gi)), init_params,
+                        orig_hw=(h0, w0),
+                        support_img=support[g.support_frame])
+                    for gi, g in enumerate(groups)])
+            with tracing.span("score"):
+                probs = probs[..., :h0, :w0]  # crop the bucket padding
+                merged = merge_objects(probs, self.cfg.threshold)
+                j_means, f_means, _ = score_merged_device(index, seq_name,
+                                                          seq, merged)
+                self._phase_done("score")
+                merged = _merged_to_host(merged, len(groups))
+                probs = probs.cpu().numpy()
         return {
             "seq": seq_name,
-            "merged": _merged_to_host(merged, len(groups)),
-            "probs": probs.cpu().numpy(),
+            "merged": merged,
+            "probs": probs,
             "J_per_object": j_means,
             "F_per_object": f_means,
             "J_mean": _nanmean(j_means),
@@ -630,6 +647,13 @@ class OneShotEvaluator:
 
         Returns ``{name: uint8 [T, H, W]}`` label maps with the support row
         from the GT and the frames before it 0."""
+        with tracing.span("stream"):
+            return self._eval_stream(index, seq_names, meta_params, seed,
+                                     init_params)
+
+    def _eval_stream(self, index, seq_names, meta_params: MetaParams,
+                     seed: int, init_params: Params
+                     ) -> Dict[str, np.ndarray]:
         cfg = self.cfg
         pend: List[Tuple] = []
         for i, name in enumerate(seq_names):
@@ -642,16 +666,17 @@ class OneShotEvaluator:
                                          init_params)
                 pend.append(("done", name, res["merged"]))
                 continue
-            frames, support, (T, h0, w0) = stage_sequence(
-                index, name, self.device, cfg.pad_multiple)
-            sf = groups[0].support_frame
-            sup = support[sf]
-            gt = index.get_label(name, sf)
-            gt_bins = np.stack([binarize_label(gt, g.object_ids)
-                                for g in groups])
-            labels = transforms.pad_label_to(
-                upload(gt_bins.astype(np.int32), self.device),
-                tuple(frames.shape[1:3]))
+            with tracing.span("stage"):
+                frames, support, (T, h0, w0) = stage_sequence(
+                    index, name, self.device, cfg.pad_multiple)
+                sf = groups[0].support_frame
+                sup = support[sf]
+                gt = index.get_label(name, sf)
+                gt_bins = np.stack([binarize_label(gt, g.object_ids)
+                                    for g in groups])
+                labels = transforms.pad_label_to(
+                    upload(gt_bins.astype(np.int32), self.device),
+                    tuple(frames.shape[1:3]))
             rest = frames[sf + 1:]
             packed = None
             if len(rest) and cfg.online_adapt_step > 0:
@@ -688,7 +713,8 @@ class OneShotEvaluator:
             sf, gt_bins, (T, h0, w0), packed = payload
             mask = np.zeros((T, h0, w0), np.uint8)
             if packed is not None:
-                bits = unpack_mask_bits(packed.cpu().numpy(), w0)
+                with tracing.span("score"):
+                    bits = unpack_mask_bits(packed.cpu().numpy(), w0)
                 if tag == "single":
                     mask[sf + 1:] = bits[:, :h0]
                 else:
@@ -741,10 +767,11 @@ class OneShotEvaluator:
         sf = groups[0].support_frame
         if support_img is None:
             support_img = frames[sf]
-        gt = index.get_label(seq.name, sf)
-        labels = transforms.pad_label_to(upload(np.stack(
-            [binarize_label(gt, g.object_ids) for g in groups]
-        ).astype(np.int32), self.device), hw)
+        with tracing.span("stage"):
+            gt = index.get_label(seq.name, sf)
+            labels = transforms.pad_label_to(upload(np.stack(
+                [binarize_label(gt, g.object_ids) for g in groups]
+            ).astype(np.int32), self.device), hw)
         apply, meta, params = _fine_tune_objects(
             self.model_apply, self.meta_cfg, self.cfg, meta_params, seed,
             support_img, labels, init_params)
@@ -763,39 +790,45 @@ class OneShotEvaluator:
         the support frame's GT (void pixels are not foreground), zeros
         before it, and after it the fused or the host window loop from the
         fine-tuned ``params``."""
-        cfg = self.cfg
-        T = frames.shape[0]
-        probs = torch.zeros(tuple(support_label.shape[:-2]) + (T,)
-                            + tuple(frames.shape[1:3]), dtype=torch.float32,
-                            device=self.device)
-        probs[..., sf, :, :] = (support_label == 1).float()
-        stacked = support_label.dim() == 3
-        if self.fused_ona and sf + 1 < T:
-            windows, r, wn_real = stack_windows(
-                frames[sf + 1:], cfg.online_adapt_step, cfg.ona_window_bucket)
-            w_flat, _ = propagate_windows(
-                model_apply, self.meta_cfg, cfg, orig_hw, meta_params,
-                support_img, support_label, windows, params, wn_real)
-            probs[..., sf + 1:, :, :] = w_flat[..., :r, :, :]
+        with tracing.span("propagate"):
+            cfg = self.cfg
+            T = frames.shape[0]
+            probs = torch.zeros(tuple(support_label.shape[:-2]) + (T,)
+                                + tuple(frames.shape[1:3]),
+                                dtype=torch.float32, device=self.device)
+            probs[..., sf, :, :] = (support_label == 1).float()
+            stacked = support_label.dim() == 3
+            if self.fused_ona and sf + 1 < T:
+                windows, r, wn_real = stack_windows(
+                    frames[sf + 1:], cfg.online_adapt_step,
+                    cfg.ona_window_bucket)
+                w_flat, _ = propagate_windows(
+                    model_apply, self.meta_cfg, cfg, orig_hw, meta_params,
+                    support_img, support_label, windows, params, wn_real)
+                probs[..., sf + 1:, :, :] = w_flat[..., :r, :, :]
+                return probs
+            # the host loop: windows of `step` frames (one window of the rest
+            # without OnA), a ragged tail, a refit while frames remain
+            ona = cfg.online_adapt_step > 0
+            step = cfg.online_adapt_step if ona else T
+            k = min(step, cfg.batch_size)
+            refit = make_ona_refit_fn(model_apply, self.meta_cfg, cfg)
+            for start in range(sf + 1, T, step):
+                end = min(start + step, T)
+                window = frames[start:end]
+                with tracing.span("segment"):
+                    w_probs = self._segment(model_apply, params, window,
+                                            stacked)
+                probs[..., start:end, :, :] = w_probs
+                if ona and end < T:
+                    with tracing.span("pseudo_gt"):
+                        pseudo = build_pseudo_gt(w_probs[..., -k:, :, :],
+                                                 cfg.online_adapt_min_prop,
+                                                 orig_hw)
+                    params = self._agree(refit(meta_params, support_img,
+                                               support_label, window[-k:],
+                                               pseudo, params))
             return probs
-        # the host loop: windows of `step` frames (one window of the rest
-        # without OnA), a ragged tail, a refit while frames remain
-        ona = cfg.online_adapt_step > 0
-        step = cfg.online_adapt_step if ona else T
-        k = min(step, cfg.batch_size)
-        refit = make_ona_refit_fn(model_apply, self.meta_cfg, cfg)
-        for start in range(sf + 1, T, step):
-            end = min(start + step, T)
-            window = frames[start:end]
-            w_probs = self._segment(model_apply, params, window, stacked)
-            probs[..., start:end, :, :] = w_probs
-            if ona and end < T:
-                pseudo = build_pseudo_gt(w_probs[..., -k:, :, :],
-                                         cfg.online_adapt_min_prop, orig_hw)
-                params = self._agree(refit(meta_params, support_img,
-                                           support_label, window[-k:],
-                                           pseudo, params))
-        return probs
 
     def _eval_object_group(self, index, seq, frames: torch.Tensor, group,
                            meta_params: MetaParams,
@@ -812,10 +845,11 @@ class OneShotEvaluator:
         sf = group.support_frame
         if support_img is None:
             support_img = frames[sf]
-        gt = index.get_label(seq.name, sf)
-        support_label = transforms.pad_label_to(upload(
-            binarize_label(gt, group.object_ids).astype(np.int32),
-            self.device), hw)
+        with tracing.span("stage"):
+            gt = index.get_label(seq.name, sf)
+            support_label = transforms.pad_label_to(upload(
+                binarize_label(gt, group.object_ids).astype(np.int32),
+                self.device), hw)
 
         params, _ = fine_tune_on_support(
             self.model_apply, self.meta_cfg, cfg, meta_params, generator,

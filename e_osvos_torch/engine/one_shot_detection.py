@@ -100,6 +100,7 @@ from e_osvos_torch.parallel.mesh import (
     pad_rows,
     padded_rows,
 )
+from e_osvos_torch.utils import tracing
 from e_osvos_torch.utils.device import resolve_device, upload
 
 
@@ -177,10 +178,11 @@ class DetectionOneShotEvaluator:
         ``[O, H, W]``) on the device, 255-padded to ``hw``."""
         stacked = isinstance(groups, (list, tuple))
         gs = groups if stacked else [groups]
-        gt = index.get_label(seq.name, gs[0].support_frame)
-        bins = np.stack([binarize_label(gt, g.object_ids) for g in gs])
-        label = transforms.pad_label_to(
-            upload(bins.astype(np.int32), self.device), hw)
+        with tracing.span("stage"):
+            gt = index.get_label(seq.name, gs[0].support_frame)
+            bins = np.stack([binarize_label(gt, g.object_ids) for g in gs])
+            label = transforms.pad_label_to(
+                upload(bins.astype(np.int32), self.device), hw)
         return label if stacked else label[0]
 
     def _initial_boxes(self, support_label: torch.Tensor):
@@ -285,14 +287,15 @@ class DetectionOneShotEvaluator:
         """``num_epochs`` learned-SGD steps, each on a fresh augmentation
         batch of the support frame → (params, per-step losses)."""
         cfg = self.cfg
-        aug, draws = self._draws(generator, "fine_tune", cfg.num_epochs,
-                                 tuple(img.shape[:2]))
-        batches = [(img, label, [a.select(i) for a in aug]
-                    if isinstance(aug, list) else aug.select(i),
-                    draws.select(i)) for i in range(cfg.num_epochs)]
-        return fine_tune(self.meta_cfg, self._loss_fn, meta_params, batches,
-                         init_params=init_params,
-                         early_stop_patience=cfg.early_stop_patience)
+        with tracing.span("fine_tune"):
+            aug, draws = self._draws(generator, "fine_tune", cfg.num_epochs,
+                                     tuple(img.shape[:2]))
+            batches = [(img, label, [a.select(i) for a in aug]
+                        if isinstance(aug, list) else aug.select(i),
+                        draws.select(i)) for i in range(cfg.num_epochs)]
+            return fine_tune(self.meta_cfg, self._loss_fn, meta_params,
+                             batches, init_params=init_params,
+                             early_stop_patience=cfg.early_stop_patience)
 
     def _ona_loss_fn(self, params, batch) -> torch.Tensor:
         """The un-augmented support frame plus the pseudo-GT frames."""
@@ -320,14 +323,15 @@ class DetectionOneShotEvaluator:
         with ``ona_reset_mode="FULL"``, from the learned init."""
         cfg = self.cfg
         n = cfg.online_adapt_epochs
-        draws = self._draws(generator, "refit", n, tuple(img.shape[:2]))
-        batches = [(img, label, prop_imgs, prop_labels, draws.select(i))
-                   for i in range(n)]
-        return fine_tune(self.meta_cfg, self._ona_loss_fn,
-                         self._ona_meta_params(meta_params),
-                         batches, init_params=params,
-                         early_stop_patience=cfg.early_stop_patience,
-                         reset=cfg.ona_reset_mode == "FULL")[0]
+        with tracing.span("refit"):
+            draws = self._draws(generator, "refit", n, tuple(img.shape[:2]))
+            batches = [(img, label, prop_imgs, prop_labels, draws.select(i))
+                       for i in range(n)]
+            return fine_tune(self.meta_cfg, self._ona_loss_fn,
+                             self._ona_meta_params(meta_params),
+                             batches, init_params=params,
+                             early_stop_patience=cfg.early_stop_patience,
+                             reset=cfg.ona_reset_mode == "FULL")[0]
 
     # -- propagation ------------------------------------------------------------
 
@@ -383,31 +387,36 @@ class DetectionOneShotEvaluator:
         (``fused``) pads it by replicating the last frame, and pads the
         window count to ``ona_window_bucket``. Returns the probabilities
         ``[R, H, W]`` (stacked groups: ``[O, R, H, W]``)."""
-        cfg = self.cfg
-        R = rest.shape[0]
-        ona = cfg.online_adapt_step > 0
-        step = cfg.online_adapt_step if ona else R
-        if fused:
-            windows = stack_windows(rest, step,
-                                    cfg.ona_window_bucket if ona else 0)[0]
-        else:
-            windows = rest.split(step)
-        wn_real = -(-R // step)
-        kk = min(step, cfg.batch_size)
-        hw = tuple(rest.shape[1:3])
-        out = []
-        for i, window in enumerate(windows):
-            jitter_u = self._draws(generator, "frames", len(window), hw)
-            w_probs, _, _, boxes, valid = self._segment_window(
-                params, window, boxes, valid, jitter_u)
-            out.append(w_probs)
-            if ona and i < wn_real - 1:
-                pseudo = build_pseudo_gt(w_probs[..., -kk:, :, :],
-                                         cfg.online_adapt_min_prop, orig_hw)
-                params = self._ona_fine_tune(
-                    meta_params, generator, support_img, support_label,
-                    window[-kk:], pseudo, params)
-        return torch.cat(out, -3)[..., :R, :, :]
+        with tracing.span("propagate"):
+            cfg = self.cfg
+            R = rest.shape[0]
+            ona = cfg.online_adapt_step > 0
+            step = cfg.online_adapt_step if ona else R
+            if fused:
+                windows = stack_windows(rest, step,
+                                        cfg.ona_window_bucket if ona else 0)[0]
+            else:
+                windows = rest.split(step)
+            wn_real = -(-R // step)
+            kk = min(step, cfg.batch_size)
+            hw = tuple(rest.shape[1:3])
+            out = []
+            for i, window in enumerate(windows):
+                with tracing.span("segment"):
+                    jitter_u = self._draws(generator, "frames", len(window),
+                                           hw)
+                    w_probs, _, _, boxes, valid = self._segment_window(
+                        params, window, boxes, valid, jitter_u)
+                out.append(w_probs)
+                if ona and i < wn_real - 1:
+                    with tracing.span("pseudo_gt"):
+                        pseudo = build_pseudo_gt(w_probs[..., -kk:, :, :],
+                                                 cfg.online_adapt_min_prop,
+                                                 orig_hw)
+                    params = self._ona_fine_tune(
+                        meta_params, generator, support_img, support_label,
+                        window[-kk:], pseudo, params)
+            return torch.cat(out, -3)[..., :R, :, :]
 
     def _eval_object_group(self, index, seq, frames: torch.Tensor, group,
                            meta_params: MetaParams,
@@ -506,22 +515,25 @@ class DetectionOneShotEvaluator:
         means per object and over objects."""
         seq = index.sequences[seq_name]
         groups = seq.object_groups
-        frames, support, (T, h0, w0) = stage_sequence(
-            index, seq_name, self.device, self.cfg.pad_multiple)
-        if self._batched(groups):
-            probs = self._eval_objects_batched(
-                index, seq, frames, meta_params, seed, init_params,
-                orig_hw=(h0, w0),
-                support_img=support[groups[0].support_frame])
-        else:
-            probs = torch.stack([
-                self._eval_object_group(
-                    index, seq, frames, g, meta_params,
-                    _generator(fold_in(seed, gi)), init_params,
-                    orig_hw=(h0, w0), support_img=support[g.support_frame])
-                for gi, g in enumerate(groups)])
-        res = self._score(index, seq_name, seq, probs[..., :h0, :w0])
-        self._phase_done("score")
+        with tracing.span("sequence"):
+            with tracing.span("stage"):
+                frames, support, (T, h0, w0) = stage_sequence(
+                    index, seq_name, self.device, self.cfg.pad_multiple)
+            if self._batched(groups):
+                probs = self._eval_objects_batched(
+                    index, seq, frames, meta_params, seed, init_params,
+                    orig_hw=(h0, w0),
+                    support_img=support[groups[0].support_frame])
+            else:
+                probs = torch.stack([
+                    self._eval_object_group(
+                        index, seq, frames, g, meta_params,
+                        _generator(fold_in(seed, gi)), init_params,
+                        orig_hw=(h0, w0),
+                        support_img=support[g.support_frame])
+                    for gi, g in enumerate(groups)])
+            res = self._score(index, seq_name, seq, probs[..., :h0, :w0])
+            self._phase_done("score")
         return res
 
     def eval_stream(self, index, seq_names, meta_params: MetaParams,
@@ -538,13 +550,20 @@ class DetectionOneShotEvaluator:
         in turn and ``fused_ona=True``. Returns ``{name: uint8 [T, H, W]}``
         {0, 1} masks of that group: the support row from the GT, the frames
         before it 0."""
+        with tracing.span("stream"):
+            return self._eval_stream(index, seq_names, meta_params, seed,
+                                     init_params)
+
+    def _eval_stream(self, index, seq_names, meta_params: MetaParams,
+                     seed: int, init_params) -> Dict[str, np.ndarray]:
         pend = []
         for i, name in enumerate(seq_names):
             seq = index.sequences[name]
             group = seq.object_groups[0]
             sf = group.support_frame
-            frames, support, (T, h0, w0) = stage_sequence(
-                index, name, self.device, self.cfg.pad_multiple)
+            with tracing.span("stage"):
+                frames, support, (T, h0, w0) = stage_sequence(
+                    index, name, self.device, self.cfg.pad_multiple)
             gt_bin = binarize_label(index.get_label(name, sf),
                                     group.object_ids)
             probs = self._eval_object_group(
@@ -560,7 +579,9 @@ class DetectionOneShotEvaluator:
             mask = np.zeros((T, h0, w0), np.uint8)
             mask[sf] = gt_bin == 1
             if packed is not None:
-                mask[sf + 1:] = unpack_mask_bits(packed.cpu().numpy(), w0)
+                with tracing.span("score"):
+                    mask[sf + 1:] = unpack_mask_bits(packed.cpu().numpy(),
+                                                     w0)
             out[name] = mask
         return out
 
@@ -611,11 +632,14 @@ class DetectionOneShotEvaluator:
         ``[O, T]`` J/F arrays and the packed merged planes. ``probs`` stays
         a device tensor in the result; fetching it is the caller's
         choice."""
-        merged = merge_objects(probs, self.cfg.threshold)
-        j_means, f_means, _ = score_merged_device(index, seq_name, seq, merged)
+        with tracing.span("score"):
+            merged = merge_objects(probs, self.cfg.threshold)
+            j_means, f_means, _ = score_merged_device(index, seq_name, seq,
+                                                      merged)
+            merged = _merged_to_host(merged, len(seq.object_groups))
         return {
             "seq": seq_name,
-            "merged": _merged_to_host(merged, len(seq.object_groups)),
+            "merged": merged,
             "probs": probs,
             "J_per_object": j_means,
             "F_per_object": f_means,

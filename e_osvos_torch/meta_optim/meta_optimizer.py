@@ -56,6 +56,7 @@ from e_osvos_torch.meta_optim.lr_tree import (
     init_lr_tree,
     materialize_lrs,
 )
+from e_osvos_torch.utils import tracing
 
 Params = Dict[str, torch.Tensor]
 LossFn = Callable[[Params, Any], torch.Tensor]
@@ -143,10 +144,12 @@ def inner_sgd_step(loss_fn: LossFn, params: Params, lrs: Params, batch: Any,
     the detached loss."""
     names = list(lrs)
     leaves = [params[k] for k in names]
-    loss = loss_fn(params, batch)
-    grads = torch.autograd.grad(loss if loss.dim() == 0 else loss.sum(),
-                                leaves)
-    with torch.no_grad():
+    with tracing.span("forward"):
+        loss = loss_fn(params, batch)
+    with tracing.span("backward"):
+        grads = torch.autograd.grad(loss if loss.dim() == 0 else loss.sum(),
+                                    leaves)
+    with tracing.span("update"), torch.no_grad():
         torch._foreach_sub_(
             leaves, torch._foreach_mul(grads, [lrs[k] for k in names]))
         if grad_sum is not None:
@@ -197,11 +200,12 @@ def fine_tune(cfg: MetaOptimConfig, loss_fn: LossFn, meta_params: MetaParams,
         if latch is not None and latch.all_stopped:
             losses.append(torch.full_like(losses[-1], math.inf))
             continue
-        step_lrs = lrs if latch is None else latch.freeze(lrs)
-        params, loss = inner_sgd_step(loss_fn, params, step_lrs, batch)
-        if latch is not None:
-            loss = latch.update(loss)
-        losses.append(loss.float())
+        with tracing.span("inner_step"):
+            step_lrs = lrs if latch is None else latch.freeze(lrs)
+            params, loss = inner_sgd_step(loss_fn, params, step_lrs, batch)
+            if latch is not None:
+                loss = latch.update(loss)
+            losses.append(loss.float())
     return params, torch.stack(losses)
 
 

@@ -8,9 +8,10 @@ steps, both modes of scripts/bench_meta_step.py), built by the same
 functions. For each mode, after one warm-up meta step through
 ``MetaTrainer.run``, torch.profiler traces one more meta step through
 ``MetaTrainer.run`` (task sampling on the host included): device time by
-kernel class (as scripts/torch_profile_one_shot.py classifies it), the
-device's busy share of the wall time and the number of kernels. Prints one
-JSON object and, with ``--out``, writes it to that file.
+kernel class, the device's busy share of the wall time (the kernels'
+durations summed, so overlapping kernels count twice) and the number of
+kernels. Prints one JSON object and, with ``--out``, writes it to that
+file.
 """
 
 from __future__ import annotations
@@ -20,15 +21,61 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 import chip_smoke  # noqa: E402
-from torch_profile_one_shot import profile  # noqa: E402
+
+GN_KERNELS = ("partial_sums_kernel", "group_finalize_kernel",
+              "affine_kernel", "affine_dx_kernel")
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    if any(k in name for k in GN_KERNELS):
+        return "groupnorm_kernels"
+    if any(k in low for k in ("conv", "cudnn", "xmma", "cutlass", "gemm",
+                              "wgrad", "dgrad", "fprop", "implicit")):
+        return "conv_matmul"
+    if "reduce" in low:
+        return "reduction"
+    if any(k in low for k in ("copy", "memcpy", "memset", "cat")):
+        return "copy"
+    if "elementwise" in low or "vectorized" in low or "foreach" in low:
+        return "elementwise"
+    return "other"
+
+
+def profile(fn):
+    """Device time by kernel class and the device's busy share for fn()."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    classes: dict = {}
+    n_kernels = 0
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.time_range.elapsed_us()
+        cls = kernel_class(evt.name)
+        classes[cls] = classes.get(cls, 0.0) + us / 1e3
+        n_kernels += 1
+    busy = sum(classes.values())
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "kernels": n_kernels,
+            "device_ms_by_class": dict(sorted(classes.items(),
+                                              key=lambda kv: -kv[1]))}
 
 
 def main(argv=None) -> int:

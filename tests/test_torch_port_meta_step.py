@@ -58,7 +58,7 @@ from e_osvos_torch.parallel import (
     make_meta_step,
     make_outer_optimizer,
 )
-from e_osvos_torch.utils import MetricsLogger
+from e_osvos_torch.utils import MetricsLogger, tracing
 from test_torch_port_augment import jax_frame_draws, jax_task_draws
 from test_torch_port_models import randomized_variables
 
@@ -344,7 +344,12 @@ def test_meta_trainer_run_and_checkpoint_round_trip(tmp_path):
     assert recs[1]["lr_mean"] > 0 and recs[1]["lr_std"] >= 0
     assert (tmp_path / "last_meta_iter.ckpt").exists()
     assert (tmp_path / "best_meta_iter.ckpt").exists()
-    assert list((tmp_path / "prof").glob("meta_iters_1_2.json"))
+    (trace,) = (tmp_path / "prof").glob("meta_iters_1_2.json")
+    # the window turns the program's spans on, and off after it
+    names = {e.get("name") for e in json.loads(trace.read_text())[
+        "traceEvents"]}
+    assert {"meta_step", "forward", "backward", "update"} <= names
+    assert not tracing.enabled() and not tracing.collect()
 
     # the checkpoint is of iteration 2: restore and replay iteration 3
     other, _ = _trainer(tmp_path / "b", vis_interval=100)
