@@ -61,6 +61,7 @@ from e_osvos_torch.data import transforms
 from e_osvos_torch.data.datasets import binarize_label
 from e_osvos_torch.data.loader import load_frames
 from e_osvos_torch.meta_optim import MetaOptimConfig, MetaParams, fine_tune
+from e_osvos_torch.models.resnet import Conv, ConvTranspose
 from e_osvos_torch.models.stacked import (
     object_stacked_apply,
     stack_lrs,
@@ -166,6 +167,68 @@ def make_pseudo_gt_loss_fn(model_apply: Callable, cfg: OneShotConfig
     return loss_fn
 
 
+def times_conv_engines(model_apply: Callable, cfg: OneShotConfig) -> bool:
+    """Whether the support fine-tune lets cuDNN time the engines of its
+    convolutions: every convolution of the model (``Conv.dtype``) and, with
+    blur on, the augmentation's computes in a 16-bit float, and the caller
+    asked for no deterministic algorithms (``cudnn.deterministic``,
+    ``torch.use_deterministic_algorithms``): timing may pick another engine
+    in another run, and with it another rounding. A float32 model, and an
+    apply that is not a model's (no ``model_apply.model``), keep the
+    heuristic's engines."""
+    if (torch.backends.cudnn.deterministic
+            or torch.are_deterministic_algorithms_enabled()):
+        return False
+    model = getattr(model_apply, "model", None)
+    if not isinstance(model, torch.nn.Module):
+        return False
+    dtypes = {m.dtype for m in model.modules()
+              if isinstance(m, (Conv, ConvTranspose))}
+    if cfg.augment.blur_prob > 0:
+        dtypes.add(transforms._dtype(cfg.augment.compute_dtype))
+    return bool(dtypes) and dtypes <= {torch.bfloat16, torch.float16}
+
+
+def with_timed_forward(loss_fn: Callable) -> Callable:
+    """``loss_fn`` with cuDNN's benchmark mode on while it runs, and the
+    flag as it was afterwards, also after an exception: its forward's
+    convolutions take the engines cuDNN times as fastest, the backward that
+    ``autograd.grad`` runs after it the heuristic's picks.
+
+    PyTorch keeps the engine chosen for a problem, keyed by its pass,
+    dtype, shapes, strides, groups, the operands' alignment and the
+    deterministic and TF32 flags, and reuses it whatever the mode reads
+    later. So the timed picks serve these forwards' 16-bit problems at this
+    batch size alone: the refits and the window inference (other batch
+    sizes), the scoring's and any float32 model's convolutions (float32)
+    keep the heuristic's, and no float32 result changes. By the same cache
+    a problem that ran earlier in the process with the mode off keeps its
+    heuristic engine here: the gain needs the fine-tune to be the first
+    to run these problems.
+
+    Why the forward alone: for a bf16 DeepLab's batch-3 support batch the
+    heuristic runs the ASPP's dilation-12 and -18 forward on a direct
+    grouped kernel, 200-350x slower than the engine timing finds, and its dgrad
+    and wgrad picks are sound. Timing a problem builds its candidate
+    engines and runs them, in the first step: on an H100 the forward's
+    problems cost about 2 s of it, where forward and backward cost 5-7 s
+    (two objects stacked: 18 s).
+
+    Only this flag is set: ``cudnn.flags()`` would reset the flags it is
+    not given (TF32, ``enabled``) to its own defaults."""
+
+    def timed(params, batch):
+        cudnn = torch.backends.cudnn
+        before = cudnn.benchmark
+        cudnn.benchmark = True
+        try:
+            return loss_fn(params, batch)
+        finally:
+            cudnn.benchmark = before
+
+    return timed
+
+
 def fine_tune_on_support(model_apply: Callable, meta_cfg: MetaOptimConfig,
                          cfg: OneShotConfig, meta_params: MetaParams,
                          generator: torch.Generator, img: torch.Tensor,
@@ -174,7 +237,9 @@ def fine_tune_on_support(model_apply: Callable, meta_cfg: MetaOptimConfig,
     """One-shot adaptation: ``num_epochs`` learned-SGD steps, each on a fresh
     augmentation batch of the support frame. All draws are taken from
     ``generator`` (stacked objects: a list, one an object) up front and
-    cross to the device once."""
+    cross to the device once. A 16-bit model's forwards run with cuDNN's
+    timed engine picks (``with_timed_forward``), each such fine-tune
+    counted as ``timed_conv_fine_tunes`` (``tracing.count``)."""
     shape = (cfg.num_epochs, cfg.batch_size)
     with tracing.span("fine_tune"):
         if label.dim() == 2:
@@ -188,8 +253,12 @@ def fine_tune_on_support(model_apply: Callable, meta_cfg: MetaOptimConfig,
                      for g in generator]
             batches = [(img, label, [d.select(i) for d in draws])
                        for i in range(cfg.num_epochs)]
-        return fine_tune(meta_cfg, make_support_loss_fn(model_apply, cfg),
-                         meta_params, batches, init_params=init_params,
+        loss_fn = make_support_loss_fn(model_apply, cfg)
+        if times_conv_engines(model_apply, cfg):
+            tracing.count("timed_conv_fine_tunes")
+            loss_fn = with_timed_forward(loss_fn)
+        return fine_tune(meta_cfg, loss_fn, meta_params, batches,
+                         init_params=init_params,
                          early_stop_patience=cfg.early_stop_patience)
 
 

@@ -33,6 +33,11 @@ alone. On, each span keeps a ``Span`` record in memory:
 * the GroupNorm and NMS kernel launches issued inside it (the change of
   ``ops.cuda_group_norm.launch_counts()`` and ``ops.cuda_nms.launch_counts()``
   between its ends; nested spans' launches are their parent's too);
+* apart from the launches, the change of the program's own counts
+  (``count(name)``, kept whether tracing is on or off, read by
+  ``program_counts()``): a ``fine_tune`` span that let cuDNN time its
+  convolutions' engines holds ``timed_conv_fine_tunes: 1`` in ``counts``
+  (``engine/one_shot.py``);
 * the host syncs counted on it and on no span inside it: within a root span
   the tracer sets ``torch.cuda.set_sync_debug_mode("warn")`` and counts
   PyTorch's "synchronizing CUDA operation" warnings on the innermost open
@@ -64,7 +69,8 @@ _OFF = contextlib.nullcontext()  # every span while tracing is off
 @dataclasses.dataclass
 class Span:
     """One finished span. Times are seconds on ``time.perf_counter``'s
-    axis; ``launches`` holds the counters that moved."""
+    axis; ``launches`` holds the kernel launch counters that moved,
+    ``counts`` the program's counts that moved."""
 
     name: str
     id: int
@@ -75,6 +81,7 @@ class Span:
     device_start: float = 0.0
     device_end: float = 0.0
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
     syncs: int = 0
 
     @property
@@ -92,10 +99,15 @@ def _launch_counts() -> Dict[str, int]:
     return {**cuda_group_norm.launch_counts(), **cuda_nms.launch_counts()}
 
 
+def _moved(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
 class _Open:
     """A span while it is open (tracing on)."""
 
-    __slots__ = ("tracer", "rec", "counts", "events", "anchor", "profiled")
+    __slots__ = ("tracer", "rec", "before", "events", "anchor", "profiled")
 
     def __init__(self, tracer: "Tracer", name: str):
         self.tracer = tracer
@@ -114,7 +126,7 @@ class _Open:
             rec.root = rec.id
             self.anchor = t.begin_root()
         t.open.append(self)
-        self.counts = _launch_counts()
+        self.before = _launch_counts(), dict(t.counts)
         self.profiled = torch.profiler.record_function(rec.name)
         self.profiled.__enter__()
         self.events = None
@@ -133,10 +145,9 @@ class _Open:
             if self.events is not None:
                 self.events[1].record()
             self.profiled.__exit__(*exc)
-            after = _launch_counts()
-            rec.launches = {k: v - self.counts.get(k, 0)
-                            for k, v in after.items()
-                            if v != self.counts.get(k, 0)}
+            launched, counted = self.before
+            rec.launches = _moved(launched, _launch_counts())
+            rec.counts = _moved(counted, t.counts)
         finally:
             t.open.pop()
             t.done.append(self)
@@ -146,9 +157,11 @@ class _Open:
 
 class Tracer:
     """The spans of one process: the switch, the open spans' stack, the
-    finished ones, and the state of the root span's sync counting."""
+    finished ones, the state of the root span's sync counting, and the
+    program's counts."""
 
     def __init__(self):
+        self.counts: Dict[str, int] = {}
         self.on = False
         self.cuda = False
         self.next_id = 0
@@ -178,6 +191,13 @@ class Tracer:
 
     def enabled(self) -> bool:
         return self.on
+
+    def count(self, name: str) -> None:
+        """Adds one to the program's count ``name``, on or off."""
+        self.counts[name] = self.counts.get(name, 0) + 1
+
+    def program_counts(self) -> Dict[str, int]:
+        return dict(self.counts)
 
     def collect(self) -> List[Span]:
         """The finished spans in the order they closed, their device times
@@ -241,6 +261,8 @@ enable = TRACER.enable
 disable = TRACER.disable
 enabled = TRACER.enabled
 collect = TRACER.collect
+count = TRACER.count
+program_counts = TRACER.program_counts
 
 
 def totals(records: List[Span]) -> Dict[str, Dict[str, float]]:

@@ -26,6 +26,12 @@ the span itself, kernel launches) and these quantities of it:
 * ``syncs_per_frame``: the host syncs counted on all of the sequence's
   spans over its frames.
 
+Every sequence, traced or not, also gives ``timed_conv_fine_tunes``: the
+fine-tunes that let cuDNN time their forwards' convolution engines (the
+change of ``tracing.program_counts()`` over the sequence; one a sequence
+for a 16-bit DeepLab, none for a float32 model or the detection
+evaluator).
+
 With ``--out`` it also writes the object to that file.
 """
 
@@ -111,6 +117,7 @@ def main(argv=None) -> int:
         b.hook.begin_sequence(armed=False)
         if traced:
             tracing.enable("cuda")
+        timed = tracing.program_counts().get("timed_conv_fine_tunes", 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         b.evaluator.eval_sequence(pool, name, inputs.meta,
@@ -119,8 +126,10 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
         tracing.disable()
         b.hook.end_sequence()
+        timed = tracing.program_counts().get("timed_conv_fine_tunes",
+                                             0) - timed
         seq = {"j": j, "name": name, "frames": frames, "traced": traced,
-               "wall_s": wall}
+               "wall_s": wall, "timed_conv_fine_tunes": timed}
         if traced:
             seq.update(summary(tracing.collect(), frames))
         result["sequences"].append(seq)

@@ -1,6 +1,7 @@
 """The GroupNorm kernels and the greedy NMS kernel (K3) on the card against
-their plain twins, and a model with ``batch`` norms on the card against
-the CPU.
+their plain twins, a model with ``batch`` norms on the card against
+the CPU, and the support fine-tune's timed cuDNN engines against the
+heuristic's.
 
 Marked ``cuda``: they skip without a CUDA device (the kernels have no CPU
 mode) and run on a GPU machine with
@@ -271,6 +272,114 @@ def test_batch_norm_model_matches_cpu(cuda, dtype):
         over = {k: (card[k], cpu[k]) for k in f32
                 if card[k] > 2 * cpu[k] + 1e-3}
         assert not over, sorted(over.items())[:5]
+
+
+# the benchmark cells' frame: a 480x854 DeepLabV3+ ResNet-50 os16 support
+# batch of 3
+CELL_HW = (480, 854)
+
+
+def _support_step(cuda, dtype, seed=0):
+    """One learned-SGD step of ``fine_tune_on_support`` at batch 3 on a
+    full-size frame, from the learned init of a seeded ResNet-50 DeepLabV3+
+    (the benchmark cells' model) computing in ``dtype``: each learned
+    parameter's step, on the host."""
+    from e_osvos_torch.data.transforms import AugmentConfig
+    from e_osvos_torch.engine import OneShotConfig, one_shot
+    from e_osvos_torch.meta_optim import MetaOptimConfig, init_meta_params
+    from e_osvos_torch.models import DeepLabV3Plus, functional_apply
+
+    model = DeepLabV3Plus(num_classes=1, arch="resnet50",
+                          backbone_norm="frozen_bn", head_norm="group16",
+                          output_stride=16, dtype=dtype, seed=0, device=cuda)
+    meta_cfg = MetaOptimConfig(lr_hierarchy_level="neuron", init_lr=1e-3)
+    meta = init_meta_params(meta_cfg, model)
+    cfg = OneShotConfig(num_epochs=1, batch_size=3,
+                        augment=AugmentConfig(compute_dtype="float32"))
+    gen = torch.Generator().manual_seed(seed)
+    h, w = CELL_HW
+    img = (torch.rand(h, w, 3, generator=gen) * 255).to(cuda)
+    label = torch.zeros(h, w, dtype=torch.int32)
+    label[120:300, 200:520] = 1
+    params, _ = one_shot.fine_tune_on_support(
+        functional_apply(model), meta_cfg, cfg, meta, gen, img,
+        label.to(cuda))
+    return {k: (params[k].detach() - meta.model_init[k]).float().cpu()
+            for k in meta.log_init_lr}
+
+
+# cuDNN's heuristic engine for the ASPP's dilation-12 and -18 forward over
+# layer4's bf16 map at batch 3 (cuDNN 9 on an H100)
+DIRECT_KERNEL = "conv2d_grouped_direct_kernel"
+
+
+def _profiled(fn):
+    """``fn()`` and the names of the device kernels it ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def test_timed_conv_engines_match_the_heuristic(cuda, monkeypatch):
+    """The bf16 support fine-tune's step with cuDNN's timed engine picks
+    against the heuristic's. The mechanism: a timed step after the one
+    that tuned runs no ``conv2d_grouped_direct_kernel``, where the
+    heuristic's step runs it. The result: each parameter's step within
+    twice the heuristic bf16 step's gap to the float32 step from the same
+    parameters, plus 1e-3 (of the float32 step's largest magnitude). A
+    float32 convolution of the Mask R-CNN stem's shape at the fine-tune's
+    batch, which the bf16 stem's problem matches but for the dtype, gives
+    the same bits after the timed fine-tunes as before them, with the flag
+    back off.
+
+    cuDNN keeps the engine chosen for a problem whatever the benchmark flag
+    reads later, so the timed picks take effect only where the fine-tune is
+    the first in the process to run its problems: here the timed steps run
+    first, and the heuristic's step runs with the TF32 flag on, which is
+    part of the problem's key and changes no bf16 arithmetic, so it neither
+    reuses the timed picks nor leaves its own to them."""
+    from e_osvos_torch.engine import one_shot
+    from e_osvos_torch.utils import tracing
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(3, CELL_HW[0], CELL_HW[1], 3, generator=gen).to(cuda)
+    x = x.permute(0, 3, 1, 2)  # NHWC in memory, as the port's convolutions
+    stem_w = torch.randn(64, 3, 7, 7, generator=gen).to(cuda)
+
+    def stem():
+        return torch.nn.functional.conv2d(x, stem_w, None, 2, 3)
+
+    before = stem()
+    counts = tracing.program_counts().get("timed_conv_fine_tunes", 0)
+    timed = _support_step(cuda, torch.bfloat16)
+    _, tuned = _profiled(lambda: _support_step(cuda, torch.bfloat16))
+    assert tracing.program_counts()["timed_conv_fine_tunes"] == counts + 2
+    assert torch.backends.cudnn.benchmark is False
+    assert torch.equal(stem(), before)
+
+    monkeypatch.setattr(one_shot, "times_conv_engines", lambda *a: False)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        heuristic, picked = _profiled(
+            lambda: _support_step(cuda, torch.bfloat16))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert any(DIRECT_KERNEL in k for k in picked), sorted(picked)
+    assert tuned and not any(DIRECT_KERNEL in k for k in tuned)
+    f32 = _support_step(cuda, torch.float32)
+    over = {}
+    for k, want in f32.items():
+        scale = max(float(want.abs().max()), 1e-6)
+        gap = float((timed[k] - heuristic[k]).abs().max()) / scale
+        bf16 = float((heuristic[k] - want).abs().max()) / scale
+        if gap > 2 * bf16 + 1e-3:
+            over[k] = (gap, bf16)
+    assert all(bool(torch.isfinite(t).all()) for t in timed.values())
+    assert not over, sorted(over.items())[:5]
 
 
 # (N, max_out, IoU threshold): the detection path's, a ragged N, several

@@ -31,9 +31,11 @@ from e_osvos_torch.engine import (
     OneShotConfig,
     OneShotEvaluator,
 )
+from e_osvos_torch.engine import one_shot
 from e_osvos_torch.meta_optim import MetaOptimConfig, init_meta_params
 from e_osvos_torch.models import DeepLabV3Plus, functional_apply
 from e_osvos_torch.models.mask_rcnn import MaskRCNN, RoIConfig
+from e_osvos_torch.models.resnet import Conv
 from e_osvos_torch.models.rpn import RPNConfig
 from e_osvos_torch.ops import cuda_group_norm, cuda_nms
 from e_osvos_torch.utils import tracing
@@ -168,15 +170,17 @@ def test_ids_parents_roots_and_an_exception():
 # -- the evaluators ---------------------------------------------------------
 
 
-def _deeplab(objects: int, fused: bool):
+def _deeplab(objects: int, fused: bool, dtype=torch.float32,
+             batch_objects: bool = True):
     model = DeepLabV3Plus(num_classes=1, arch="resnet10",
                           backbone_norm="frozen_bn", head_norm="group16",
-                          output_stride=16, device="cpu")
+                          output_stride=16, dtype=dtype, device="cpu")
     meta_cfg = MetaOptimConfig()
     ev = OneShotEvaluator(functional_apply(model), meta_cfg,
                           OneShotConfig(augment=AugmentConfig(**AUG_KW),
                                         **CFG_KW),
-                          device="cpu", fused_ona=fused)
+                          device="cpu", fused_ona=fused,
+                          batch_objects=batch_objects)
     index = SyntheticVOSIndex(num_sequences=1, num_frames=6, size=(32, 48),
                               num_objects=objects, seed=2)
     return ev, init_meta_params(meta_cfg, model), index, 3
@@ -254,6 +258,180 @@ def test_span_tree_of_a_sequence(build, objects, fused, counted_twins):
             assert sum(c.launches.get(k, 0) for c in children[r.id]) <= v
     assert sum(r.launches.get("group_stats", 0) for r in recs
                if r.name in ("forward", "segment")) == moved["group_stats"]
+
+
+# -- cuDNN's timed engine picks ---------------------------------------------
+
+
+def _bf16_deeplab(objects, fused, batch_objects=True):
+    return _deeplab(objects, fused, torch.bfloat16, batch_objects)
+
+
+def _model_of(ev):
+    return getattr(ev, "model", None) or ev.model_apply.model
+
+
+@pytest.fixture
+def flag_reads(monkeypatch):
+    """``reads(ev)`` installs readers of ``torch.backends.cudnn.benchmark``
+    on ``ev``'s model and returns their list of ``(where, open spans,
+    flag)``: a forward hook of every ``Conv`` (``conv``), a hook on each
+    one's output that fires inside ``autograd.grad`` (``grad``), and every
+    ``F.conv2d`` call, the model's and the dense scoring's (``conv2d``).
+    The readers see the open spans, so tracing is on."""
+    out = []
+    conv2d = torch.nn.functional.conv2d
+
+    def now(where):
+        out.append((where, {o.rec.name for o in tracing.TRACER.open},
+                    torch.backends.cudnn.benchmark))
+
+    def read_conv2d(*args, **kwargs):
+        now("conv2d")
+        return conv2d(*args, **kwargs)
+
+    def on_forward(mod, args, y):
+        now("conv")
+        if y.requires_grad:
+            y.register_hook(lambda g: now("grad"))
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", read_conv2d)
+
+    def install(ev):
+        for m in _model_of(ev).modules():
+            if isinstance(m, Conv):
+                m.register_forward_hook(on_forward)
+        tracing.enable("cpu")
+        return out
+
+    return install
+
+
+def _timed(where, spans):
+    """Whether a read should find the flag on: in a fine-tune's forward."""
+    return where != "grad" and "fine_tune" in spans
+
+
+@pytest.mark.parametrize("build,objects,fused,batched,fine_tunes", [
+    (_bf16_deeplab, 1, True, True, 1), (_bf16_deeplab, 1, False, True, 1),
+    (_bf16_deeplab, 2, True, True, 1), (_bf16_deeplab, 2, True, False, 2)],
+    ids=["fused", "host", "2obj-stacked", "2obj-in-turn"])
+def test_bf16_fine_tune_times_conv_engines(build, objects, fused, batched,
+                                           fine_tunes, flag_reads,
+                                           monkeypatch):
+    """A bf16 DeepLab's support fine-tune runs its forwards with cuDNN's
+    benchmark flag on and its backward (``autograd.grad``) with the flag as
+    it was (off), as do its refits, window inference and scoring. Each such
+    fine-tune is counted once, on its ``fine_tune`` span, and the outputs
+    are bit for bit those of the flag left alone."""
+    ev, meta, index, _ = build(objects, fused, batched)
+    torch.backends.cudnn.benchmark = False
+    reads = flag_reads(ev)
+    before = tracing.program_counts().get("timed_conv_fine_tunes", 0)
+    got = ev.eval_sequence(index, "seq00", meta, 7)
+    assert (tracing.program_counts()["timed_conv_fine_tunes"] - before
+            == fine_tunes)
+    recs = tracing.collect()
+    fts = [r for r in recs if r.name == "fine_tune"]
+    assert len(fts) == fine_tunes
+    assert all(r.counts == {"timed_conv_fine_tunes": 1} for r in fts)
+    assert not any("timed_conv_fine_tunes" in r.launches for r in recs)
+    assert not any(r.counts for r in recs
+                   if r.name in ("refit", "propagate", "segment", "score"))
+    assert torch.backends.cudnn.benchmark is False
+
+    assert all(flag == _timed(where, spans)
+               for where, spans, flag in reads)
+    seen = {(where, span) for where, spans, _ in reads for span in spans}
+    for span in ("fine_tune", "refit"):
+        assert {("conv", span), ("grad", span)} <= seen, span
+    assert {("conv", "segment"), ("conv2d", "score")} <= seen
+
+    monkeypatch.setattr(one_shot, "times_conv_engines", lambda *a: False)
+    reads.clear()
+    left = ev.eval_sequence(index, "seq00", meta, 7)
+    assert reads and not any(flag for _, _, flag in reads)
+    for key in ("probs", "merged"):
+        assert np.array_equal(_host(got[key]), _host(left[key]))
+
+
+@pytest.mark.parametrize("build,fused", [
+    (_deeplab, True), (_deeplab, False), (_maskrcnn, True),
+    (_maskrcnn, False)],
+    ids=["deeplab-f32-fused", "deeplab-f32-host", "maskrcnn-fused",
+         "maskrcnn-host"])
+def test_float32_and_detection_keep_the_heuristic(build, fused, flag_reads):
+    """A float32 DeepLab sequence and a Mask R-CNN sequence read cuDNN's
+    benchmark flag off in every convolution, forward and backward, and
+    count no timed fine-tune."""
+    ev, meta, index, _ = build(1, fused)
+    torch.backends.cudnn.benchmark = False
+    reads = flag_reads(ev)
+    before = tracing.program_counts()
+    ev.eval_sequence(index, "seq00", meta, 7)
+    assert tracing.program_counts() == before
+    assert not any(flag for _, _, flag in reads)
+    seen = {(where, span) for where, spans, _ in reads for span in spans}
+    assert {("conv", "fine_tune"), ("grad", "fine_tune"),
+            ("grad", "refit")} <= seen
+
+
+@pytest.mark.parametrize("flag", [False, True])
+def test_timed_conv_engines_restore_the_flag(flag, monkeypatch):
+    """The benchmark flag reads as it was after a bf16 fine-tune and after
+    an exception raised inside its learned-SGD loop, and on inside; the
+    engine limit is PyTorch's, untouched."""
+    cudnn = torch.backends.cudnn
+    ev, meta, index, _ = _bf16_deeplab(1, True)
+    limit = cudnn.benchmark_limit
+    cudnn.benchmark = flag
+    try:
+        ev.eval_sequence(index, "seq00", meta, 7)
+        assert (cudnn.benchmark, cudnn.benchmark_limit) == (flag, limit)
+
+        inside = []
+
+        def raising(params, batch):
+            inside.append((cudnn.benchmark, cudnn.benchmark_limit))
+            raise RuntimeError("planted")
+
+        monkeypatch.setattr(one_shot, "make_support_loss_fn",
+                            lambda *a: raising)
+        with pytest.raises(RuntimeError, match="planted"):
+            ev.eval_sequence(index, "seq00", meta, 7)
+        assert inside == [(True, limit)]
+        assert (cudnn.benchmark, cudnn.benchmark_limit) == (flag, limit)
+    finally:
+        cudnn.benchmark = False
+
+
+@pytest.mark.parametrize("mode", ["cudnn", "torch"])
+def test_deterministic_algorithms_keep_the_heuristic(mode, flag_reads):
+    """Where the caller asked for deterministic algorithms (cuDNN's flag, or
+    ``torch.use_deterministic_algorithms``) a bf16 fine-tune leaves the
+    benchmark flag off and counts no timed fine-tune: timing could pick
+    another engine, and another rounding, from run to run."""
+    cudnn = torch.backends.cudnn
+    ev, meta, index, _ = _bf16_deeplab(1, True)
+    cudnn.benchmark = False
+    prev = (cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    if mode == "cudnn":
+        cudnn.deterministic = True
+    else:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        reads = flag_reads(ev)
+        before = tracing.program_counts()
+        ev.eval_sequence(index, "seq00", meta, 7)
+        assert tracing.program_counts() == before
+    finally:
+        cudnn.deterministic = prev[0]
+        torch.use_deterministic_algorithms(prev[1], warn_only=prev[2])
+    assert not any(r.counts for r in tracing.collect())
+    assert not any(flag for _, _, flag in reads)
+    assert {("conv", "fine_tune"), ("grad", "fine_tune")} <= {
+        (where, span) for where, spans, _ in reads for span in spans}
 
 
 # -- on the card ------------------------------------------------------------
